@@ -1,0 +1,605 @@
+"""Cache-aware DSE evaluation engine on torch -- the search's one hot path.
+
+Port of ``repro/core/dse/engine.py`` for ``backend="batched"``: every
+cache miss is scored by ``compiler.batched_mapper.map_and_simulate``
+(the exact Eq. 1-3 mapping followed by the batched plan executor), one
+call per workload per micro-batch, on the engine's device.  The engine
+keeps the reference's three host caches: the per-workload preparation
+cache (``prepared_workload``), the genome memo behind the
+``ResultStore`` interface (keys are ``mode:`` + canonical genome bytes),
+and the vectorized genome -> config stacking (``genomes_to_configs``,
+bitwise the reference's).
+
+``EvalEngine(workloads, config=EngineConfig(...), device=None)`` runs on
+``cuda`` and raises without a card unless ``device="cpu"`` is passed.
+Combinations that are not ported yet raise ``NotImplementedError``
+naming their ROADMAP.md queue item: ``backend`` ``scan`` / ``exact`` /
+``oracle``, ``exact_mapper="python"``, ``fidelity="link"`` and
+``shard=True``.  The reference's deprecated per-knob constructor
+arguments are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ...device import resolve_device
+from ..arch import KNOB_GRID, MAX_TILE_TYPES, MAX_TILES, prec_mask
+from ..calibrate.asap7 import CalibrationTable, DEFAULT_CALIB
+from ..compiler.batched_mapper import map_and_simulate
+from ..simulator.batched import CHIP_KEYS as _CHIP_KEYS
+from ..simulator.batched import place_configs
+from ..simulator.costs import grid_dims
+from ..simulator.orchestrator import CACHE_FRAC, SCHEDULE_MODES, noc_hops
+from ..workloads import build
+from .api import BACKENDS, META_VERSION, EngineConfig, context_digest
+from .batch_eval import prepare_configs, prepare_workload
+from .encoding import (FIELDS_PER_TILE, GENOME_LEN, IDX_ASPECT, IDX_DRAM,
+                       IDX_DRAM_CH, IDX_ICONN, IDX_NOC_BPC, IDX_TOPO,
+                       _TILE_FIELDS, decode)
+from .store import MemoryLRUStore, ResultStore
+
+__all__ = ["EvalEngine", "EngineStats", "EngineConfig",
+           "NonFiniteMetricsError", "genomes_to_configs", "genome_areas",
+           "canonical_genomes", "prepared_workload", "BACKENDS",
+           "SCHEDULE_MODES"]
+
+
+class NonFiniteMetricsError(RuntimeError):
+    """A freshly simulated metric row contained NaN (or a non-finite
+    TOPS/W) — raised *before* the row can enter any memo, store, or
+    Pareto front, naming the offending canonical genome.  ``retryable``
+    because the poisoned batch was never memoized: a retry re-simulates
+    it cleanly when the corruption was transient (the chaos suite's
+    injected-NaN case)."""
+
+    retryable = True
+
+    def __init__(self, canon: np.ndarray, mode: str,
+                 row: Tuple[np.ndarray, np.ndarray, np.ndarray]):
+        self.canon = np.asarray(canon, np.int64).copy()
+        self.mode = str(mode)
+        self.row = tuple(np.asarray(a, np.float64).copy() for a in row)
+        super().__init__(
+            f"non-finite metrics for canonical genome "
+            f"{self.canon.tolist()} (mode={self.mode}): lat="
+            f"{self.row[0].tolist()} en={self.row[1].tolist()} "
+            f"tops_w={self.row[2].tolist()}; pass nonfinite='skip' to "
+            f"score such rows -inf instead")
+
+
+# metric keys each §3.2 schedule mode scores on
+_MODE_KEYS = {
+    "latency": ("latency_s", "energy_pj", "achieved_tops"),
+    "throughput": ("ii_s", "energy_ss_pj", "achieved_tops_ss"),
+}
+
+# configurations this slice does not run yet, with their ROADMAP.md item
+_UNPORTED_BACKENDS = {
+    "scan": "A8 (the scan backend, batch_eval's in-scan mapping)",
+    "exact": "A6 (the class-specialized search_population scan)",
+    "oracle": "A4 (the ChipSim oracle)",
+}
+
+
+# =============================================================================
+# workload preparation cache (cache 1)
+# =============================================================================
+
+@functools.lru_cache(maxsize=128)
+def prepared_workload(name: str, aggressive_int4: bool = False,
+                      enable_fusion: bool = True) -> Dict[str, np.ndarray]:
+    """Config-independent compile of one workload, cached process-wide.
+    Callers must treat the returned arrays as read-only."""
+    return prepare_workload(build(name), aggressive_int4=aggressive_int4,
+                            enable_fusion=enable_fusion)
+
+
+# =============================================================================
+# vectorized genome -> SoA config stacking (cache 3's fast path)
+# =============================================================================
+# Grid lookup tables.  Index order matches KNOB_GRID, and the modulo used
+# per field matches decode() exactly.
+
+_ARRAY_DIM = np.asarray(KNOB_GRID["array_dim"], np.float64)
+_SRAM_KB = np.asarray(KNOB_GRID["sram_kb"], np.float64)
+_COUNT = np.asarray(KNOB_GRID["count"], np.int64)
+_SFU = np.asarray(KNOB_GRID["sfu_mask"], np.float64)
+_ENGINE = np.asarray([int(e) for e in KNOB_GRID["engine"]], np.float64)
+_SPARSITY = np.asarray([int(s) for s in KNOB_GRID["sparsity"]], np.float64)
+_DATAFLOW = np.asarray([int(d) for d in KNOB_GRID["dataflow"]], np.float64)
+_PIPE = np.asarray(KNOB_GRID["pipeline_depth"], np.float64)
+_DB = np.asarray([float(b) for b in KNOB_GRID["double_buffer"]], np.float64)
+_ASYM = np.asarray([int(a) for a in KNOB_GRID["asym_mac"]], np.float64)
+_PREC_MASK = np.asarray([prec_mask(sorted(s))
+                         for s in KNOB_GRID["precision_set"]], np.float64)
+_PREC_MAX = np.asarray([int(max(s, key=int))
+                        for s in KNOB_GRID["precision_set"]], np.int64)
+_DRAM = np.asarray(KNOB_GRID["dram_gbps"], np.float64)
+_ICONN = [ic for ic in KNOB_GRID["interconnect"]]
+# interconnect-structure gene grids (PR 9 topology genes)
+_TOPO = np.asarray([float(b) for b in KNOB_GRID["noc_topology"]], np.float64)
+_ASPECT = np.asarray(KNOB_GRID["grid_aspect"], np.float64)
+_NOC_BPC = np.asarray(KNOB_GRID["noc_bpc"], np.float64)
+_DRAM_CH = np.asarray(KNOB_GRID["dram_channels"], np.float64)
+# hop counts tabulated over (interconnect, num_tiles): 4 x (MAX_TILES+1)
+_HOPS_TABLE = np.asarray(
+    [[float(noc_hops(ic, max(n, 1))) for n in range(MAX_TILES + 1)]
+     for ic in _ICONN], np.float64)
+
+_FIELD_COL = {f: i for i, f in enumerate(_TILE_FIELDS)}
+
+
+def _tile_cols(genomes: np.ndarray, t: int, field: str) -> np.ndarray:
+    return genomes[:, 1 + t * FIELDS_PER_TILE + _FIELD_COL[field]]
+
+
+def _per_type_values(genomes: np.ndarray, calib: CalibrationTable):
+    """(B, MAX_TILE_TYPES) arrays of per-tile-type template values,
+    replicating decode()'s knob lookups (including its modulo wrapping) and
+    tile_area()'s arithmetic term-for-term so parity is bitwise."""
+    B = len(genomes)
+    T = MAX_TILE_TYPES
+    v: Dict[str, np.ndarray] = {}
+    f64 = lambda a: np.asarray(a, np.float64)
+
+    sfu_idx = np.stack([_tile_cols(genomes, t, "sfu") % len(_SFU)
+                        for t in range(T)], axis=1)
+    sfu = _SFU[sfu_idx]
+    special = sfu > 0
+
+    rows = np.stack([_ARRAY_DIM[_tile_cols(genomes, t, "rows") % 5]
+                     for t in range(T)], axis=1)
+    cols = np.stack([_ARRAY_DIM[_tile_cols(genomes, t, "cols") % 5]
+                     for t in range(T)], axis=1)
+    rows = np.where(special, 0.0, rows)
+    cols = np.where(special, 0.0, cols)
+    big = rows * cols >= 1024.0
+    v["rows"], v["cols"] = rows, cols
+    v["num_macs"] = rows * cols
+    v["clock_mhz"] = np.where(special, 800.0, np.where(big, 1200.0, 500.0))
+    v["dsp_count"] = np.where(special, 1.0, np.where(big, 2.0, 1.0))
+    v["dsp_simd"] = np.full((B, T), 64.0)
+    v["sfu_mask"] = sfu
+    v["sfu_parallel"] = np.full((B, T), 16.0)
+    v["sram_bpc"] = np.full((B, T), 8 * 16.0)   # default sram_banks=8
+
+    v["engine"] = np.stack([_ENGINE[_tile_cols(genomes, t, "engine") % 4]
+                            for t in range(T)], axis=1)
+    prec_idx = np.stack([_tile_cols(genomes, t, "prec") % 4
+                         for t in range(T)], axis=1)
+    v["prec_mask"] = _PREC_MASK[prec_idx]
+    max_prec = _PREC_MAX[prec_idx]
+    v["max_prec"] = f64(max_prec)
+    v["sparsity"] = np.stack([_SPARSITY[_tile_cols(genomes, t, "sparsity") % 3]
+                              for t in range(T)], axis=1)
+    v["dataflow"] = np.stack([_DATAFLOW[_tile_cols(genomes, t, "dataflow") % 3]
+                              for t in range(T)], axis=1)
+    v["sram_kb"] = np.stack([_SRAM_KB[_tile_cols(genomes, t, "sram") % 7]
+                             for t in range(T)], axis=1)
+    v["double_buffer"] = np.stack([_DB[_tile_cols(genomes, t, "db") % 2]
+                                   for t in range(T)], axis=1)
+    v["pipeline_depth"] = np.stack([_PIPE[_tile_cols(genomes, t, "pipe") % 4]
+                                    for t in range(T)], axis=1)
+    v["asym_mac"] = np.stack([_ASYM[_tile_cols(genomes, t, "asym") % 4]
+                              for t in range(T)], axis=1)
+    v["cache_cap"] = v["sram_kb"] * 1024.0 * CACHE_FRAC
+    v["dsp_lanes"] = v["dsp_count"] * v["dsp_simd"]
+    v["clock_hz"] = v["clock_mhz"] * 1e6
+
+    # tile_area (Eq. 7), same term order as simulator.area.area_breakdown
+    a_mac_mm2 = np.asarray(calib.a_mac_mm2, np.float64)
+    eng_a = np.asarray(calib.engine_a_mult, np.float64)
+    sp_a = np.asarray(calib.sparsity_a_mult, np.float64)
+    eng_idx = np.asarray(v["engine"], np.int64)
+    sp_idx = np.asarray(v["sparsity"], np.int64)
+    a_mac_unit = a_mac_mm2[max_prec] * eng_a[eng_idx]
+    a_mac = v["num_macs"] * a_mac_unit * sp_a[sp_idx]
+    a_sram = v["sram_kb"] * calib.a_sram_mm2_per_kb
+    a_dsp = v["dsp_count"] * v["dsp_simd"] * calib.a_dsp_mm2_per_lane
+    sfu_i = np.asarray(sfu, np.int64)
+    a_spec = np.where(sfu_i & 1, calib.a_fft_mm2, 0.0)
+    a_spec = a_spec + np.where(sfu_i & 2, calib.a_lif_mm2, 0.0)
+    a_spec = a_spec + np.where(sfu_i & 4, calib.a_poly_mm2, 0.0)
+    a_ports = calib.a_ports_base_mm2 \
+        + (rows + cols) * calib.a_ports_per_lane_mm2
+    v["area_mm2"] = a_mac + a_sram + a_dsp + a_spec + a_ports
+
+    counts = np.stack([_COUNT[_tile_cols(genomes, t, "count") % 8]
+                       for t in range(T)], axis=1)
+    n_types = (genomes[:, 0] + 1)[:, None]  # decode: genome[0] + 1
+    counts = np.where(np.arange(T)[None, :] < n_types, counts, 0)
+    v["counts"] = counts
+    return v
+
+
+def genomes_to_configs(genomes: np.ndarray,
+                       calib: CalibrationTable = DEFAULT_CALIB
+                       ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Vectorized equivalent of ``prepare_configs([decode(g) for g in
+    genomes], calib)`` — bitwise identical output, no per-genome Python
+    object materialization."""
+    genomes = np.asarray(genomes, dtype=np.int64).reshape(-1, GENOME_LEN)
+    B = len(genomes)
+    v = _per_type_values(genomes, calib)
+    counts = v["counts"]                        # (B, T) ints
+    starts = np.zeros_like(counts)
+    starts[:, 1:] = np.cumsum(counts, axis=1)[:, :-1]
+    ends = starts + counts
+
+    slots = np.arange(MAX_TILES)                # (S,)
+    # (B, T, S) membership of each instance slot in each tile type
+    member = (slots[None, None, :] >= starts[:, :, None]) \
+        & (slots[None, None, :] < ends[:, :, None])
+
+    tile_f = {}
+    for f in ("num_macs", "rows", "cols", "engine", "prec_mask", "asym_mac",
+              "sparsity", "dataflow", "sram_kb", "dsp_lanes", "dsp_count",
+              "sfu_mask", "sfu_parallel", "double_buffer", "pipeline_depth",
+              "clock_hz", "cache_cap", "sram_bpc", "area_mm2", "max_prec"):
+        # exactly one membership per occupied slot -> the masked sum is the
+        # per-type value itself, bit-for-bit
+        tile_f[f] = np.sum(np.where(member, v[f][:, :, None], 0.0), axis=1)
+    tile_f["exists"] = member.any(axis=1).astype(np.float64)
+
+    num_tiles = counts.sum(axis=1)              # (B,) ints
+    chip_f = {f: np.zeros(B) for f in _CHIP_KEYS}
+    chip_f["dram_gbps"] = _DRAM[genomes[:, IDX_DRAM] % 6].copy()
+    iconn_idx = np.asarray(genomes[:, IDX_ICONN] % 4)
+    chip_f["hops"] = _HOPS_TABLE[iconn_idx, num_tiles]
+    chip_f["noc_bpc"] = _NOC_BPC[genomes[:, IDX_NOC_BPC] % 4].copy()
+    chip_f["noc_base_cycles"] = np.full(B, 8.0)  # ChipConfig defaults
+    chip_f["ref_clock_hz"] = np.full(B, 1000 * 1e6)
+    # interconnect-structure genes (decode()'s knob lookups, vectorized)
+    chip_f["torus"] = _TOPO[genomes[:, IDX_TOPO] % 2].copy()
+    chip_f["dram_channels"] = _DRAM_CH[genomes[:, IDX_DRAM_CH] % 4].copy()
+    aspect = _ASPECT[genomes[:, IDX_ASPECT] % 3]
+    gw, gh = grid_dims(np.asarray(num_tiles, np.float64), aspect)
+    chip_f["grid_w"], chip_f["grid_h"] = gw, gh
+
+    # peak_tops: sequential per-instance sum, matching prepare_configs
+    term = tile_f["num_macs"] * tile_f["clock_hz"]
+    acc = np.zeros(B)
+    for s in range(MAX_TILES):
+        acc = acc + term[:, s]
+    chip_f["peak_tops"] = acc / 1e12
+
+    # chip_area: per-type tile_area * count summed in type order + NoC
+    # (router/link width + torus scale) + extra DRAM-channel PHYs —
+    # term-for-term simulator.area.chip_area
+    area = np.zeros(B)
+    for t in range(MAX_TILE_TYPES):
+        area = area + v["area_mm2"][:, t] * counts[:, t]
+    noc_scale = (0.5 + 0.5 * chip_f["noc_bpc"] / 64.0) \
+        * np.where(chip_f["torus"] > 0, 1.25, 1.0)
+    area = area + num_tiles * calib.a_noc_mm2_per_tile * noc_scale
+    chip_f["chip_area"] = area \
+        + (chip_f["dram_channels"] - 1) * calib.a_dram_phy_mm2
+    return {"tile": tile_f, "chip": chip_f}
+
+
+def genome_areas(genomes: np.ndarray,
+                 calib: CalibrationTable = DEFAULT_CALIB) -> np.ndarray:
+    """(N,) chip areas straight from genomes (== chip_area(decode(g)))."""
+    return genomes_to_configs(genomes, calib)["chip"]["chip_area"]
+
+
+_SFU_COL = _FIELD_COL["sfu"]
+# genes decode() ignores on a Special-Function tile (rows/cols are forced
+# to 0) plus the MAC-path knobs whose values only feed terms that a
+# zero-MAC tile multiplies or gates away (engine/precision/sparsity/
+# dataflow/asym/pipeline) — bitwise inertness is pinned by
+# tests/test_engine.py::test_special_tile_inert_genes
+_SPECIAL_INERT_COLS = tuple(
+    _FIELD_COL[f] for f in ("rows", "cols", "engine", "prec", "sparsity",
+                            "dataflow", "asym", "pipe"))
+_PREC_COL = _FIELD_COL["prec"]
+_ASYM_COL = _FIELD_COL["asym"]
+# asym_mac acts only through supports_precision, so per precision-set the
+# four variants collapse into equivalence classes (row = prec gene, col =
+# asym gene): {INT8} gains INT4 from W4A8/W2A8 and nothing from W4A16;
+# {INT4,INT8} and the full set gain nothing; {INT8,FP16} gains INT4 from
+# any variant.  Pinned bitwise by tests/test_engine.py.
+_ASYM_CANON = np.asarray([[0, 1, 1, 0],
+                          [0, 0, 0, 0],
+                          [0, 1, 1, 1],
+                          [0, 0, 0, 0]], np.int64)
+
+
+def canonical_genomes(genomes: np.ndarray) -> np.ndarray:
+    """Zero every don't-care gene so genomes that decode() maps to the
+    same chip (or to chips with bitwise-identical metrics) share one memo
+    entry: the tile-type blocks beyond ``n_tile_types``, and the inert
+    genes of Special-Function tiles.  Crossover and mutation constantly
+    touch these genes — without canonicalization every such child looks
+    novel and gets re-simulated."""
+    g = np.asarray(genomes, dtype=np.int64).reshape(-1, GENOME_LEN).copy()
+    n_types = g[:, 0] + 1
+    for t in range(MAX_TILE_TYPES):
+        base = 1 + t * FIELDS_PER_TILE
+        inactive = t >= n_types
+        block = g[:, base:base + FIELDS_PER_TILE]
+        g[:, base:base + FIELDS_PER_TILE] = \
+            np.where(inactive[:, None], 0, block)
+        special = (_SFU[g[:, base + _SFU_COL] % len(_SFU)] > 0) & ~inactive
+        for col in _SPECIAL_INERT_COLS:
+            g[:, base + col] = np.where(special, 0, g[:, base + col])
+        g[:, base + _ASYM_COL] = _ASYM_CANON[g[:, base + _PREC_COL] % 4,
+                                             g[:, base + _ASYM_COL] % 4]
+    return g
+
+
+
+# =============================================================================
+# the engine
+# =============================================================================
+
+@dataclasses.dataclass
+class EngineStats:
+    """Counters over the engine's lifetime.  ``requests`` counts genome
+    scoring requests (one per genome per evaluate() call); a request is a
+    hit (memoized), a skip (rejected by the ``keep`` predicate), or a
+    miss (simulated now, on every workload)."""
+
+    requests: int = 0
+    hits: int = 0
+    skips: int = 0
+    misses: int = 0
+    eval_seconds: float = 0.0
+    workloads: int = 0
+    # fused miss-batch dispatches: one per simulated micro-batch (the unit
+    # the serving layer's cross-request coalescing reduces)
+    dispatches: int = 0
+
+    def hit_rate(self) -> float:
+        return self.hits / max(self.requests, 1)
+
+    def throughput(self) -> float:
+        """Scored (config x workload) pairs per second of evaluate() time,
+        counting cache hits as scored work (that is the point)."""
+        pairs = (self.hits + self.misses) * self.workloads
+        return pairs / max(self.eval_seconds, 1e-12)
+
+
+
+class EvalEngine:
+    """Unified cached scorer: genomes x fixed workload list -> metrics.
+
+    ``evaluate`` returns ``latency`` (N, W), ``energy`` (N, W),
+    ``tops_w`` (N, W), ``area`` (N,) and ``meta``; in throughput mode the
+    three metric columns are the steady-state II, per-inference energy
+    and TOPS/W.  ``device`` (default: the card) is where every miss is
+    simulated.
+    """
+
+    def __init__(self, workloads: Sequence[str],
+                 calib: CalibrationTable = DEFAULT_CALIB,
+                 config: Optional[EngineConfig] = None,
+                 device=None):
+        config = EngineConfig() if config is None else config
+        if config.backend in _UNPORTED_BACKENDS:
+            raise NotImplementedError(
+                f"backend={config.backend!r} is not ported yet: ROADMAP.md "
+                f"queue item {_UNPORTED_BACKENDS[config.backend]}; use "
+                f"backend='batched'")
+        if config.exact_mapper != "batched":
+            raise NotImplementedError(
+                "exact_mapper='python' is not ported yet: ROADMAP.md queue "
+                "item A3 (the host compiler's map_graph)")
+        if config.fidelity != "aggregate":
+            raise NotImplementedError(
+                "fidelity='link' is not ported yet: ROADMAP.md queue item "
+                "A5 (the link-fidelity tier)")
+        if config.shard:
+            raise NotImplementedError(
+                "shard=True has no counterpart on one card yet: ROADMAP.md "
+                "queue item A7")
+        self.device = resolve_device(device)
+        self.config = config
+        self.mode = config.mode
+        self.fidelity = config.fidelity
+        self.workloads = list(workloads)
+        self.calib = calib
+        self.batch = config.batch
+        self.memoize = config.memoize
+        self.vectorized = config.vectorized
+        self.aggressive_int4 = config.aggressive_int4
+        self.enable_fusion = config.enable_fusion
+        self.backend = config.backend
+        self.nonfinite = config.nonfinite
+        self.stats = EngineStats(workloads=len(self.workloads))
+        explicit_cap = config.memo_max is not None
+        self.memo_max = max(config.memo_max if explicit_cap else 131_072,
+                            self.batch)
+        if config.store is None:
+            self.store: ResultStore = MemoryLRUStore(self.memo_max)
+        else:
+            self.store = config.store
+            if explicit_cap:
+                if not isinstance(self.store, MemoryLRUStore):
+                    raise ValueError(
+                        "memo_max cannot cap a store without an in-memory "
+                        "LRU tier")
+                self.store.resize(self.memo_max)
+        self.store.bind(self.context_key())
+
+    def context_key(self) -> bytes:
+        """``api.context_digest`` over this engine's config, framework and
+        device type."""
+        return context_digest(self.workloads, self.calib,
+                              self.aggressive_int4, self.enable_fusion,
+                              self.backend, self.fidelity, self.device.type)
+
+    # ------------------------------------------------------------- plumbing
+    def _prepared(self, wname: str) -> Dict[str, np.ndarray]:
+        return prepared_workload(wname, self.aggressive_int4,
+                                 self.enable_fusion)
+
+    def _configs(self, genomes: np.ndarray):
+        if self.vectorized:
+            return genomes_to_configs(genomes, self.calib)
+        chips = [decode(g, f"g{i}") for i, g in enumerate(genomes)]
+        return prepare_configs(chips, self.calib)
+
+    @staticmethod
+    def _key(genome: np.ndarray) -> bytes:
+        return np.ascontiguousarray(genome, dtype=np.int64).tobytes()
+
+    @staticmethod
+    def _take(cfgs, idx):
+        return {"tile": {k: v[idx] for k, v in cfgs["tile"].items()},
+                "chip": {k: v[idx] for k, v in cfgs["chip"].items()}}
+
+    def _simulate(self, cfgs, mode: str):
+        """(n, W) lat/en/tw for a config stack: per workload, one
+        ``map_and_simulate`` on this engine's device.  Unmappable
+        (genome, workload) pairs score inf latency/energy and 0 TOPS/W."""
+        self.stats.dispatches += 1
+        lkey, ekey, akey = _MODE_KEYS[mode]
+        n, W = len(cfgs["chip"]["chip_area"]), len(self.workloads)
+        lat = np.full((n, W), np.inf)
+        en = np.full((n, W), np.inf)
+        tw = np.zeros((n, W))
+        # device placement once, not once per workload
+        placed = place_configs(cfgs, self.device)
+        for j, wname in enumerate(self.workloads):
+            res = map_and_simulate(self._prepared(wname), cfgs, self.calib,
+                                   mode=mode, device=self.device,
+                                   placed=placed, placements=False)
+            ok = res["ok"]
+            l, e = res[lkey], res[ekey]
+            lat[ok, j] = l[ok]
+            en[ok, j] = e[ok]
+            power = e[ok] * 1e-12 / np.maximum(l[ok], 1e-30)
+            tw[ok, j] = res[akey][ok] / np.maximum(power, 1e-30)
+        return lat, en, tw
+
+    def _check_mode(self, mode: Optional[str]) -> str:
+        mode = self.mode if mode is None else mode
+        if mode not in SCHEDULE_MODES:
+            raise ValueError(f"mode {mode!r} not in {SCHEDULE_MODES}")
+        return mode
+
+    # ------------------------------------------------------------- evaluate
+    def evaluate(self, genomes: np.ndarray,
+                 keep: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+                 mode: Optional[str] = None,
+                 canonical: Optional[np.ndarray] = None
+                 ) -> Dict[str, np.ndarray]:
+        """Score every genome on every workload, through the memo.
+
+        ``keep(areas) -> (N,) bool`` skips simulation of genomes the caller
+        will discard (they come back inf / inf / 0 and are not memoized);
+        ``mode`` overrides the engine's schedule mode for this call;
+        ``canonical`` supplies precomputed ``canonical_genomes`` rows.
+        """
+        mode = self._check_mode(mode)
+        t0 = time.perf_counter()
+        pre = dataclasses.replace(self.stats)
+        genomes = np.asarray(genomes, dtype=np.int64).reshape(-1, GENOME_LEN)
+        n, W = len(genomes), len(self.workloads)
+        lat = np.zeros((n, W))
+        en = np.zeros((n, W))
+        tw = np.zeros((n, W))
+        cfgs = self._configs(genomes)
+        area = np.asarray(cfgs["chip"]["chip_area"], np.float64).copy()
+        self.stats.requests += n
+
+        tag = mode.encode() + b":"
+        canon = canonical_genomes(genomes) if canonical is None else \
+            np.asarray(canonical, np.int64).reshape(-1, GENOME_LEN)
+        keys = [tag + self._key(g) for g in canon]
+        keep_mask = np.ones(n, bool) if keep is None else \
+            np.asarray(keep(area), bool)
+
+        miss_idx: List[int] = []
+        dup_idx: List[int] = []
+        seen_this_call: Dict[bytes, int] = {}
+        for i, k in enumerate(keys):
+            row = self.store.get(k) if self.memoize else None
+            if row is not None:
+                lat[i], en[i], tw[i] = row
+                self.stats.hits += 1
+            elif not keep_mask[i]:
+                lat[i] = np.inf
+                en[i] = np.inf
+                self.stats.skips += 1
+            elif self.memoize and k in seen_this_call:
+                dup_idx.append(i)       # resolved from the first copy's row
+                self.stats.hits += 1
+            else:
+                seen_this_call[k] = i
+                miss_idx.append(i)
+                self.stats.misses += 1
+
+        nonfinite = 0
+        for s in range(0, len(miss_idx), self.batch):
+            chunk = miss_idx[s:s + self.batch]
+            l, e, t = self._simulate(self._take(cfgs, np.asarray(chunk)),
+                                     mode)
+            for r, i in enumerate(chunk):
+                # NaN anywhere (or a non-finite TOPS/W) is cost-model
+                # corruption and must not be cached; unmappable rows
+                # legitimately score (inf, inf, 0)
+                if (np.isnan(l[r]).any() or np.isnan(e[r]).any()
+                        or np.isnan(t[r]).any() or np.isinf(t[r]).any()):
+                    nonfinite += 1
+                    if self.nonfinite == "raise":
+                        raise NonFiniteMetricsError(
+                            canon[i], mode, (l[r], e[r], t[r]))
+                    lat[i], en[i] = np.inf, np.inf
+                    tw[i] = 0.0
+                    continue
+                lat[i], en[i], tw[i] = l[r], e[r], t[r]
+                if self.memoize:
+                    self.store.put(
+                        keys[i], (l[r].copy(), e[r].copy(), t[r].copy()))
+        for i in dup_idx:
+            j = seen_this_call[keys[i]]
+            lat[i], en[i], tw[i] = lat[j], en[j], tw[j]
+        self.stats.eval_seconds += time.perf_counter() - t0
+        meta = {"meta_version": META_VERSION, "backend": self.backend,
+                "mode": mode, "fidelity": self.fidelity, "requests": n,
+                "hits": self.stats.hits - pre.hits,
+                "misses": self.stats.misses - pre.misses,
+                "skips": self.stats.skips - pre.skips,
+                "nonfinite": nonfinite,
+                "dispatches": self.stats.dispatches - pre.dispatches}
+        meta["hit_rate"] = meta["hits"] / max(n, 1)
+        return {"latency": lat, "energy": en, "tops_w": tw, "area": area,
+                "meta": meta}
+
+    def rescore(self, genomes: np.ndarray, oracle: bool = False,
+                mode: Optional[str] = None) -> Dict[str, np.ndarray]:
+        """Exact re-scoring through the batched mapper + executor,
+        bypassing the memo.  ``oracle=True`` (the ChipSim walk) is not
+        ported yet."""
+        if oracle:
+            raise NotImplementedError(
+                "rescore(oracle=True) is not ported yet: ROADMAP.md queue "
+                "item A4 (the ChipSim oracle)")
+        mode = self._check_mode(mode)
+        genomes = np.asarray(genomes, dtype=np.int64).reshape(-1, GENOME_LEN)
+        lat, en, tw = self._simulate(self._configs(genomes), mode)
+        return {"latency": lat, "energy": en, "tops_w": tw,
+                "area": self.areas(genomes),
+                "meta": {"meta_version": META_VERSION,
+                         "backend": "batched", "mapper": "batched",
+                         "mode": mode, "fidelity": self.fidelity,
+                         "requests": len(genomes), "hits": 0,
+                         "misses": len(genomes), "skips": 0,
+                         "hit_rate": 0.0}}
+
+    def areas(self, genomes: np.ndarray) -> np.ndarray:
+        """Chip areas only -- no simulation, no cache interaction (both
+        paths are bitwise identical; pick by batch size)."""
+        genomes = np.asarray(genomes, dtype=np.int64).reshape(-1, GENOME_LEN)
+        if self.vectorized and len(genomes) >= 16:
+            return genome_areas(genomes, self.calib)
+        from ..simulator.area import chip_area
+        return np.asarray([chip_area(decode(g), self.calib)
+                           for g in genomes])

@@ -1,0 +1,430 @@
+"""Candidate-batched plan executor: ``ChipSim.run`` on (B, MAX_TILES) tensors.
+
+Port of ``repro/core/simulator/batched.py``.  The reference runs one
+``lax.scan`` over operators, ``vmap``-ed over candidates.  Here the scan
+is a Python loop over the workload's op rows, and the candidate axis is
+written out: per-tile state is a ``(B, MAX_TILES)`` tensor, per-candidate
+scalars are ``(B, 1)`` tensors.
+
+The op table is shared by every candidate (the reference's
+``vmap in_axes=None`` for the workload arrays), so each row's fields are
+host floats, and every predicate that depends only on the workload --
+``valid``, ``fused``, ``op_cls``, the predecessor list, whether the row
+can be split at all -- is a Python branch instead of a ``where`` over
+every class.  The taken branch gives the same bits at a fraction of the
+kernel launches; padding and fused rows launch nothing.
+
+Semantics are the exact orchestrator rules: dynamic DRAM bandwidth
+sharing, the byte- and slot-bounded FIFO activation cache
+(``fifo_insert``), power gating at the 5 % residual and Eq. 3 split
+execution with the explicit NoC reduce.  The aggregate fidelity tier is
+ported; the link tier is not yet.
+
+State tensors are updated in place (the reference's carry is
+immutable); nothing outside ``execute_plan`` holds them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..arch import MAX_TILES, ChipConfig
+from ..calibrate.asap7 import CalibrationTable, DEFAULT_CALIB
+from ..ir import OpClass
+from .area import chip_area, tile_area
+from .costs import (ACT_CACHE_SLOTS, CACHE_FRAC, F64, OP_COST_KEYS,
+                    CostModel, _div, _where, grid_dims, noc_transfer_energy_pj,
+                    noc_transfer_seconds, pipeline_bounds, split_op_fields,
+                    steady_state_energy)
+from .orchestrator import noc_hops
+
+__all__ = ["stack_chip_configs", "place_configs", "fifo_insert",
+           "execute_plan", "op_rows", "OpRow", "TILE_KEYS", "CHIP_KEYS"]
+
+TILE_KEYS = ("exists", "num_macs", "rows", "cols", "engine", "prec_mask",
+             "asym_mac", "sparsity", "dataflow", "sram_kb", "dsp_lanes",
+             "dsp_count", "sfu_mask", "sfu_parallel", "double_buffer",
+             "pipeline_depth", "clock_hz", "cache_cap", "sram_bpc",
+             "area_mm2", "max_prec")
+CHIP_KEYS = ("dram_gbps", "hops", "noc_bpc", "noc_base_cycles",
+             "ref_clock_hz", "grid_w", "grid_h", "torus", "dram_channels")
+
+_ENERGY_KEYS = (("compute", "e_compute"), ("dram", "e_dram"),
+                ("sram", "e_sram"), ("irf", "e_irf"), ("orf", "e_orf"),
+                ("dsp", "e_dsp"), ("special", "e_special"))
+
+
+# =============================================================================
+# host-side stacking
+# =============================================================================
+
+def stack_chip_configs(chips: Sequence[ChipConfig],
+                       calib: CalibrationTable = DEFAULT_CALIB
+                       ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Stack chips into (B, MAX_TILES) tile / (B,) chip numpy arrays (the
+    layout ``dse.engine.genomes_to_configs`` also emits)."""
+    B = len(chips)
+    tile_f = {f: np.zeros((B, MAX_TILES)) for f in TILE_KEYS}
+    chip_f = {f: np.zeros(B) for f in CHIP_KEYS + ("peak_tops", "chip_area")}
+    for b, chip in enumerate(chips):
+        inst = chip.instances()
+        for i, t in enumerate(inst):
+            tile_f["exists"][b, i] = 1.0
+            tile_f["num_macs"][b, i] = t.num_macs
+            tile_f["rows"][b, i] = t.rows
+            tile_f["cols"][b, i] = t.cols
+            tile_f["engine"][b, i] = int(t.engine)
+            tile_f["prec_mask"][b, i] = t.precision_mask
+            tile_f["asym_mac"][b, i] = int(t.asym_mac)
+            tile_f["sparsity"][b, i] = int(t.sparsity)
+            tile_f["dataflow"][b, i] = int(t.dataflow)
+            tile_f["sram_kb"][b, i] = t.sram_kb
+            tile_f["dsp_lanes"][b, i] = t.dsp_count * t.dsp_simd
+            tile_f["dsp_count"][b, i] = t.dsp_count
+            tile_f["sfu_mask"][b, i] = t.sfu_mask
+            tile_f["sfu_parallel"][b, i] = t.sfu_parallel
+            tile_f["double_buffer"][b, i] = float(t.double_buffer)
+            tile_f["pipeline_depth"][b, i] = t.pipeline_depth
+            tile_f["clock_hz"][b, i] = t.clock_mhz * 1e6
+            tile_f["cache_cap"][b, i] = t.sram_kb * 1024.0 * CACHE_FRAC
+            tile_f["sram_bpc"][b, i] = max(t.sram_banks, 1) * 16.0
+            tile_f["area_mm2"][b, i] = tile_area(t, calib)
+            tile_f["max_prec"][b, i] = int(t.max_precision)
+        chip_f["dram_gbps"][b] = chip.dram_gbps
+        chip_f["hops"][b] = noc_hops(chip.interconnect, len(inst))
+        chip_f["noc_bpc"][b] = chip.noc_bytes_per_cycle
+        chip_f["noc_base_cycles"][b] = chip.noc_base_cycles
+        chip_f["ref_clock_hz"][b] = chip.ref_clock_mhz * 1e6
+        gw, gh = grid_dims(float(len(inst)), chip.grid_aspect)
+        chip_f["grid_w"][b] = gw
+        chip_f["grid_h"][b] = gh
+        chip_f["torus"][b] = float(chip.torus)
+        chip_f["dram_channels"][b] = chip.dram_channels
+        chip_f["peak_tops"][b] = sum(t.num_macs * t.clock_mhz * 1e6
+                                     for t in inst) / 1e12
+        chip_f["chip_area"][b] = chip_area(chip, calib)
+    return {"tile": tile_f, "chip": chip_f}
+
+
+def place_configs(cfgs: Dict[str, Dict[str, np.ndarray]],
+                  device: torch.device) -> Tuple[Dict[str, torch.Tensor],
+                                                 Dict[str, torch.Tensor]]:
+    """Upload a stacked config dict once: tile fields as (B, MAX_TILES)
+    float64 tensors, chip fields as (B, 1)."""
+    tile = {k: torch.as_tensor(np.ascontiguousarray(cfgs["tile"][k]),
+                               dtype=F64).to(device) for k in TILE_KEYS}
+    chip = {k: torch.as_tensor(np.ascontiguousarray(cfgs["chip"][k]),
+                               dtype=F64).reshape(-1, 1).to(device)
+            for k in CHIP_KEYS}
+    return tile, chip
+
+
+# =============================================================================
+# the workload's op rows as host records
+# =============================================================================
+
+@dataclasses.dataclass(frozen=True)
+class OpRow:
+    """One active (valid, not fused away) row of a prepared workload."""
+
+    index: int
+    cls: int
+    op: Dict[str, float]          # OP_COST_KEYS as host floats
+    preds: Tuple[int, ...]        # valid predecessor indices, slot order
+    per_pred_bytes: float
+    fused_lane_ops: float
+    fused_refund_bytes: float
+    splittable: bool
+
+    @property
+    def may_split(self) -> bool:
+        """The workload-static half of the mapper's Eq. 3 split test."""
+        return self.cls == int(OpClass.MAC) and self.splittable \
+            and self.op["macs"] > 0
+
+
+def op_rows(ws: Dict[str, np.ndarray]) -> List[OpRow]:
+    """Active rows of a prepared workload (``dse.batch_eval
+    .prepare_workload``), in op order.  Padding and fused rows are left
+    out: the reference's scans leave every piece of state untouched on
+    them."""
+    rows = []
+    for i in range(len(ws["op_type"])):
+        if not (ws["valid"][i] > 0 and ws["fused"][i] == 0):
+            continue
+        rows.append(OpRow(
+            index=i, cls=int(ws["op_cls"][i]),
+            op={f: float(ws[f][i]) for f in OP_COST_KEYS},
+            preds=tuple(int(p) for p in ws["preds"][i] if p >= 0),
+            per_pred_bytes=float(ws["per_pred_bytes"][i]),
+            fused_lane_ops=float(ws["fused_lane_ops"][i]),
+            fused_refund_bytes=float(ws["fused_refund_bytes"][i]),
+            splittable=bool(ws["splittable"][i] > 0)))
+    return rows
+
+
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b]] for (B, S) x and (B, 1) idx -> (B, 1)."""
+    return torch.gather(x, 1, idx)
+
+
+# =============================================================================
+# FIFO activation cache
+# =============================================================================
+
+def fifo_insert(fifo_ops: torch.Tensor, fifo_bytes: torch.Tensor,
+                cached_at: torch.Tensor, tile: torch.Tensor, op_idx: int,
+                nbytes: float, cap: torch.Tensor) -> None:
+    """Insert op ``op_idx``'s output (``nbytes``) into each candidate's
+    ``tile`` FIFO row, evicting oldest-first until it fits in bytes
+    (``cap``, (B, 1)) and slots.  In place.
+
+    ``fifo_ops`` / ``fifo_bytes`` are (B, MAX_TILES, ACT_CACHE_SLOTS),
+    right-packed (newest at the last slot, -1 / 0.0 padding on the left);
+    ``cached_at`` is (B, max_ops + 1) op -> holding tile (-1 when absent),
+    whose last column absorbs the scatter of non-evicted slots.  Mirrors
+    the reference's ``fifo_insert`` (itself the array form of
+    ``costs.ActivationCache.insert``).
+    """
+    B, _, S = fifo_ops.shape
+    dev = fifo_ops.device
+    rows = torch.arange(B, device=dev)
+    t = tile.reshape(-1)
+    row_ops = fifo_ops[rows, t]                    # (B, S)
+    row_b = fifo_bytes[rows, t]
+    count = (row_ops >= 0).sum(dim=1, keepdim=True)
+    # rem[j] = bytes kept when slots [j:] survive; monotone nonincreasing
+    rem = torch.cat([row_b.flip(1).cumsum(1).flip(1),
+                     torch.zeros((B, 1), dtype=F64, device=dev)], dim=1)
+    fits = rem + nbytes <= cap
+    a = torch.maximum(fits.to(torch.int8).argmax(dim=1, keepdim=True),
+                      S - count)                   # first surviving slot
+    a = torch.maximum(a, (count == S).long())      # full row: evict >= 1
+    do = cap >= nbytes                             # (B, 1)
+
+    shifted_ops = torch.cat(
+        [row_ops[:, 1:], torch.full((B, 1), op_idx, dtype=row_ops.dtype,
+                                    device=dev)], dim=1)
+    shifted_b = torch.cat(
+        [row_b[:, 1:], torch.full((B, 1), nbytes, dtype=F64, device=dev)],
+        dim=1)
+    pos = torch.arange(S, device=dev)
+    keep_pos = pos >= a - 1
+    new_ops = torch.where(keep_pos, shifted_ops, -1)
+    new_b = torch.where(keep_pos, shifted_b, 0.0)
+
+    evicted = (pos >= S - count) & (pos < a) & do
+    drop = cached_at.shape[1] - 1
+    cached_at.scatter_(1, torch.where(evicted, row_ops, drop), -1)
+    cached_at[:, op_idx] = torch.where(do.reshape(-1), t,
+                                       cached_at[:, op_idx])
+    fifo_ops[rows, t] = torch.where(do, new_ops, row_ops)
+    fifo_bytes[rows, t] = torch.where(do, new_b, row_b)
+
+
+# =============================================================================
+# the plan-execution loop (mirrors ChipSim.run op for op)
+# =============================================================================
+
+def execute_plan(cm: CostModel, T: Dict[str, torch.Tensor],
+                 chip: Dict[str, torch.Tensor], rows: Sequence[OpRow],
+                 max_ops: int, total_macs: float,
+                 place: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Execute one workload's placed plan on B candidates.
+
+    ``place`` holds the mapper's placements (``compiler.batched_mapper``):
+    ``owner`` (B, max_ops) int64 clamped to >= 0, ``n_split`` (B, max_ops)
+    float64, ``split_axis`` (B, max_ops) int64 and ``split_mask``
+    (B, max_ops, MAX_TILES) bool.  Rows whose ``may_split`` is False were
+    placed on one tile by construction, so their split arm is not
+    evaluated.  Returns (B,) tensors (``(B, MAX_TILES)`` for the per-tile
+    stats): the reference's ``batch_simulate`` surface.
+    """
+    c = cm.c
+    B = T["exists"].shape[0]
+    dev = T["exists"].device
+    T = dict(T, _cache={})    # tile x precision / sparsity terms, per call
+    z1 = lambda: torch.zeros((B, 1), dtype=F64, device=dev)  # noqa: E731
+    zt = lambda: torch.zeros((B, MAX_TILES), dtype=F64, device=dev)  # noqa
+    tidx = torch.arange(MAX_TILES, device=dev)
+    exists = T["exists"] > 0
+
+    tile_finish = zt()
+    op_finish = torch.zeros((B, max_ops), dtype=F64, device=dev)
+    cached_at = torch.full((B, max_ops + 1), -1, dtype=torch.long,
+                           device=dev)
+    fifo_ops = torch.full((B, MAX_TILES, ACT_CACHE_SLOTS), -1,
+                          dtype=torch.long, device=dev)
+    fifo_bytes = torch.zeros((B, MAX_TILES, ACT_CACHE_SLOTS), dtype=F64,
+                             device=dev)
+    tile_ops, tile_active, tile_macs = zt(), zt(), zt()
+    e_mod = {m: z1() for m in ("compute", "dram", "sram", "irf", "orf",
+                               "dsp", "special", "noc", "fuse_savings")}
+    ev_hit, ev_noc, ev_miss = z1(), z1(), z1()
+    dram_occ, noc_occ = z1(), z1()
+
+    def noc_seconds(nbytes):
+        return noc_transfer_seconds(nbytes, chip["noc_bpc"], chip["hops"],
+                                    chip["noc_base_cycles"],
+                                    chip["ref_clock_hz"])
+
+    def noc_energy(nbytes):
+        return noc_transfer_energy_pj(nbytes, c.e_noc_pj_per_byte_hop,
+                                      chip["hops"])
+
+    for r in rows:
+        op, idx = r.op, r.index
+        owner = place["owner"][:, idx:idx + 1]
+        onehot = tidx == owner
+
+        # ---- dependency-ready time + input acquisition ------------------
+        t_dep = z1()
+        dram_miss = z1()
+        extra_noc_s = z1()
+        e_noc_in = z1()
+        ns_pred = noc_seconds(r.per_pred_bytes) if r.preds else None
+        ne_pred = noc_energy(r.per_pred_bytes) if r.preds else None
+        for p in r.preds:
+            t_dep = torch.maximum(t_dep, op_finish[:, p:p + 1])
+            src = cached_at[:, p:p + 1]
+            hit = src == owner
+            via_noc = (src >= 0) & (src != owner)
+            miss = src < 0
+            dram_miss = dram_miss + _where(miss, r.per_pred_bytes, 0.0)
+            extra_noc_s = extra_noc_s + torch.where(via_noc, ns_pred, 0.0)
+            e_noc_in = e_noc_in + torch.where(via_noc, ne_pred, 0.0)
+            ev_hit += hit
+            ev_noc += via_noc
+            ev_miss += miss
+        dram_rd = op["bytes_w"] + dram_miss \
+            + (op["bytes_in"] if not r.preds else 0.0)
+        # write-back: outputs fitting the owner's cache partition skip
+        # the DRAM round-trip; oversized outputs spill (§3.3.4)
+        cap_owner = _gather(T["cache_cap"], owner)
+        dram_wr = _where(cap_owner < op["bytes_out"], op["bytes_out"], 0.0)
+
+        # ---- dynamic DRAM bandwidth share --------------------------------
+        t_start0 = torch.maximum(_gather(tile_finish, owner), t_dep)
+        n_active = torch.clamp(
+            (exists & (tile_finish > t_start0)).sum(
+                dim=1, keepdim=True).to(F64), min=1.0)
+        bw_share = _div(chip["dram_gbps"], n_active)
+
+        # ---- single-tile execution (on all tiles; owner selected) --------
+        ex = cm.execute_dynamic(cm.execute_static_cls(T, op, r.cls), T,
+                                bw_share, dram_rd, dram_wr)
+        sec_owner = _gather(ex["seconds"], owner)
+        fin_single = t_start0 + extra_noc_s + sec_owner
+
+        if r.may_split:
+            # ---- Eq. 3 split execution (slice_op semantics) -------------
+            k = place["n_split"][:, idx:idx + 1]
+            mask = place["split_mask"][:, idx, :]
+            is_split = k > 1.0
+            kf = torch.clamp(k, min=1.0)
+            sub = split_op_fields(op, place["split_axis"][:, idx:idx + 1],
+                                  kf)
+            ex_sub = cm.execute_dynamic(cm.execute_static_mac(T, sub), T,
+                                        bw_share, _div(dram_rd, kf),
+                                        _div(dram_wr, kf))
+            starts_sub = torch.maximum(tile_finish, t_dep) + extra_noc_s
+            fins_sub = torch.where(mask, starts_sub + ex_sub["seconds"],
+                                   -torch.inf)
+            slice_out = _div(op["bytes_out"], kf)
+            reduce_s = noc_seconds(slice_out)
+            fin_split = fins_sub.max(dim=1, keepdim=True).values + reduce_s
+            e_noc_split = (kf - 1.0) * noc_energy(slice_out)
+            fin_op = torch.where(is_split, fin_split, fin_single)
+
+            tf_single = torch.where(onehot, fin_single, tile_finish)
+            tf_split = torch.where(mask, fins_sub, tile_finish)
+            tf_split = torch.where(onehot,
+                                   torch.maximum(tf_split, fin_split),
+                                   tf_split)
+            tile_finish = torch.where(is_split, tf_split, tf_single)
+            exec_mask = torch.where(is_split, mask, onehot)
+            sec_each = torch.where(is_split, ex_sub["seconds"],
+                                   ex["seconds"])
+            macs_each = _where(is_split, sub["macs"], op["macs"])
+        else:
+            fin_op = fin_single
+            tile_finish = torch.where(onehot, fin_single, tile_finish)
+            exec_mask = onehot
+            sec_each = ex["seconds"]
+            macs_each = op["macs"]
+        tile_ops += exec_mask
+        tile_active += torch.where(exec_mask, sec_each, 0.0)
+        tile_macs += _where(exec_mask, macs_each, 0.0)
+
+        # ---- per-module chip energy --------------------------------------
+        for mod, key in _ENERGY_KEYS:
+            single_v = ex[key] if key == "e_dram" else _gather(ex[key], owner)
+            if r.may_split:
+                split_v = torch.where(mask, ex_sub[key], 0.0).sum(
+                    dim=1, keepdim=True)
+                single_v = torch.where(is_split, split_v, single_v)
+            e_mod[mod] = e_mod[mod] + single_v
+        if r.may_split:
+            e_noc_in = e_noc_in + torch.where(is_split, e_noc_split, 0.0)
+        e_mod["noc"] = e_mod["noc"] + e_noc_in
+        # PPM energy of fused children + Eq. 6 refund, credited to the head
+        e_mod["dsp"] = e_mod["dsp"] + r.fused_lane_ops * c.e_dsp_pj_per_lane_op
+        e_mod["fuse_savings"] = e_mod["fuse_savings"] \
+            + r.fused_refund_bytes * c.e_sram_pj_per_byte
+
+        # ---- shared-resource occupancy (throughput-mode II inputs) ------
+        dram_b_op = ex["dram_bytes"]
+        noc_s_op = extra_noc_s
+        if r.may_split:
+            split_b = torch.where(mask, ex_sub["dram_bytes"], 0.0).sum(
+                dim=1, keepdim=True)
+            dram_b_op = torch.where(is_split, split_b, dram_b_op)
+            noc_s_op = noc_s_op + torch.where(is_split, reduce_s, 0.0)
+        dram_occ = dram_occ + dram_b_op
+        noc_occ = noc_occ + noc_s_op
+
+        op_finish[:, idx:idx + 1] = fin_op
+        fifo_insert(fifo_ops, fifo_bytes, cached_at, owner, idx,
+                    op["bytes_out"], cap_owner)
+
+    makespan = tile_finish.max(dim=1, keepdim=True).values
+    gated = tile_ops <= 0
+    resid = _where(gated, c.power_gate_residual, 1.0)
+    leak_t = torch.where(exists, c.leak_mw_per_mm2 * T["area_mm2"] * makespan
+                         * resid * 1e9, 0.0)
+    leakage = leak_t.sum(dim=1, keepdim=True)
+    energy = (e_mod["compute"] + e_mod["dram"] + e_mod["sram"]
+              + e_mod["irf"] + e_mod["orf"] + e_mod["dsp"]
+              + e_mod["special"] + e_mod["noc"] + leakage
+              - e_mod["fuse_savings"])
+    achieved = torch.where(makespan > 0,
+                           _div(_div(total_macs, makespan), 1e12), 0.0)
+    out = {"latency_s": makespan, "energy_pj": energy,
+           "achieved_tops": achieved, "cache_hits": ev_hit,
+           "cache_noc": ev_noc, "cache_misses": ev_miss,
+           "energy_leakage_pj": leakage}
+    for m in e_mod:
+        out[f"energy_{m}_pj"] = e_mod[m]
+
+    # ---- throughput-mode steady state (§3.2) -------------------------------
+    leak_rate = torch.where(exists, c.leak_mw_per_mm2 * T["area_mm2"]
+                            * resid * 1e9, 0.0).sum(dim=1, keepdim=True)
+    out.update(pipeline_bounds(
+        makespan, tile_active.max(dim=1, keepdim=True).values, dram_occ,
+        chip["dram_gbps"], noc_occ))
+    ii = out["ii_s"]
+    out["fill_latency_s"] = makespan
+    out["dram_bytes_per_batch"] = dram_occ
+    out["energy_ss_pj"] = steady_state_energy(energy, leakage, leak_rate, ii)
+    out["achieved_tops_ss"] = torch.where(
+        ii > 0, _div(_div(total_macs, ii), 1e12), 0.0)
+    out["pipeline_depth"] = torch.where(ii > 0, torch.ceil(_div(makespan, ii)),
+                                        1.0)
+    out = {k: v.reshape(-1) for k, v in out.items()}
+    out.update({"op_finish": op_finish, "tile_ops": tile_ops,
+                "tile_active_s": tile_active, "tile_macs": tile_macs,
+                "power_gated": gated, "tile_leakage_pj": leak_t})
+    return out

@@ -1,0 +1,76 @@
+"""Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
+
+``dse_eval_ref`` ports ``repro/kernels/ref.py::dse_eval_ref`` line for
+line; it is the semantics of record the CUDA kernel is held to.  The CPU
+path of ``kernels.ops`` and the tests use it; on the card,
+``chip_smoke.py`` compares the kernel with it.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["dse_eval_ref", "OP_FIELDS", "TILE_FIELDS"]
+
+# packed layouts shared with the kernel ---------------------------------------
+# op row: [op_cls, macs, elems, bytes_total, seq_len, sfu_kind, sfu_n]
+OP_FIELDS = 7
+# tile row: [exists, num_macs, dsp_lanes, clock_hz, eta, sfu_mask, sfu_par,
+#            prec_ok, e_mac_pj, bw_bytes_per_s]
+TILE_FIELDS = 10
+
+# candidates per chunk: bounds the (chunk, T, N) intermediates
+_CHUNK_ELEMS = 1 << 25
+
+
+def _dse_eval_rows(tiles: torch.Tensor, ops: torch.Tensor) -> torch.Tensor:
+    exists, num_macs, lanes, clock, eta, sfu_mask, sfu_par, prec_ok, e_mac, \
+        bw = [tiles[..., i] for i in range(TILE_FIELDS)]   # (B, T)
+    op_cls, macs, elems, bytes_t, seq_len, sfu_kind, sfu_n = \
+        [ops[:, i] for i in range(OP_FIELDS)]             # (N,)
+
+    tl = lambda a: a[:, :, None]      # noqa: E731  (B,T,1)
+    onp = lambda a: a[None, None, :]  # noqa: E731  (1,1,N)
+
+    mac_ok = (tl(num_macs) > 0) & (tl(prec_ok) > 0)
+    c_mac = torch.where(
+        mac_ok, onp(macs) / torch.clamp(tl(num_macs) * tl(eta), min=1e-9),
+        torch.ceil(2.0 * onp(macs) / torch.clamp(tl(lanes), min=1.0)))
+    c_dsp = torch.ceil(2.0 * onp(elems) / torch.clamp(tl(lanes), min=1.0)) \
+        * torch.clamp(onp(seq_len), min=1.0) ** 0.5
+    native = torch.floor_divide(tl(sfu_mask),
+                                torch.clamp(onp(sfu_kind), min=1.0)) % 2 >= 1
+    c_sfu_nat = onp(elems) * torch.log2(torch.clamp(onp(sfu_n), min=2.0)) \
+        / torch.clamp(tl(sfu_par), min=1.0)
+    c_sfu_low = torch.ceil(10.0 * onp(elems)
+                           / torch.clamp(tl(lanes), min=1.0))
+    c_sfu = torch.where(native, c_sfu_nat, c_sfu_low)
+    c_cmp = torch.where(onp(op_cls) == 0.0, c_mac,
+                        torch.where(onp(op_cls) == 2.0, c_sfu, c_dsp))
+    c_bw = onp(bytes_t) / torch.clamp(tl(bw) / tl(clock), min=1e-9)
+    sec = torch.maximum(c_cmp, c_bw) / tl(clock)
+    dsp_ok = tl(lanes) > 0
+    ok = torch.where(onp(op_cls) == 0.0, mac_ok | dsp_ok, dsp_ok) \
+        & (tl(exists) > 0)
+    sec = torch.where(ok, sec, torch.inf)
+    best_t = torch.argmin(sec, dim=1)                     # (B, N)
+    best_sec = torch.gather(sec, 1, best_t[:, None, :])[:, 0, :]
+    e_best = torch.gather(e_mac, 1, best_t)
+    energy = macs[None, :] * e_best + elems[None, :] * 0.5
+    return torch.stack([best_sec, energy], dim=-1)
+
+
+def dse_eval_ref(tiles: torch.Tensor, ops: torch.Tensor) -> torch.Tensor:
+    """Myopic roofline pre-filter (paper Eq. 2 applied per op in isolation).
+
+    tiles: (B, T, TILE_FIELDS) float32; ops: (N, OP_FIELDS) float32.
+    Returns (B, N, 2) float32: [best seconds, energy at the best tile].
+    Where no tile can host an op the seconds are inf and the energy is
+    ``macs * e_mac[tile 0] + 0.5 * elems`` (``argmin`` of all-inf is 0).
+    Candidates are processed in chunks; rows are independent.
+    """
+    B, T, _ = tiles.shape
+    N = ops.shape[0]
+    step = max(1, _CHUNK_ELEMS // max(T * N, 1))
+    return torch.cat([_dse_eval_rows(tiles[s:s + step], ops)
+                      for s in range(0, B, step)], dim=0) if B else \
+        torch.empty((0, N, 2), dtype=tiles.dtype, device=tiles.device)

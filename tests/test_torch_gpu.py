@@ -1,0 +1,90 @@
+"""PyTorch port on the card: the hand-written CUDA ``dse_eval`` kernel
+against its plain version, and the batched engine on ``cuda`` against the
+same engine on the CPU.  Every test here needs an NVIDIA GPU (and nvcc);
+elsewhere each one skips with its reason.  Torch only, no JAX, so the
+file runs on the GPU machine:
+``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.dse.api import EngineConfig
+from repro_torch.core.dse.encoding import random_genomes
+from repro_torch.core.dse.engine import EvalEngine
+from repro_torch.kernels import ops as K
+from repro_torch.kernels import ref as P
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+def _inputs(rng, B, T, N):
+    tiles = rng.uniform(0.5, 2.0, size=(B, T, P.TILE_FIELDS)).astype(
+        np.float32)
+    tiles[..., 0] = (rng.random((B, T)) > 0.3)
+    tiles[..., 1] = rng.integers(0, 4096, (B, T))
+    tiles[..., 2] = 128.0
+    tiles[..., 3] = 1e9
+    tiles[..., 9] = 4e9
+    ops = np.stack([
+        rng.integers(0, 3, N), rng.integers(0, 10**6, N),
+        rng.integers(1, 10**5, N), rng.integers(1, 10**6, N),
+        np.ones(N), 2.0 ** rng.integers(0, 3, N), np.full(N, 512.0)],
+        axis=1).astype(np.float32)
+    return tiles, ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,N", [(8, 8, 128), (16, 24, 256),
+                                   (13, 24, 1000)])
+def test_cuda_kernel_matches_plain_version(cuda, B, T, N):
+    tiles, ops = _inputs(np.random.default_rng(B), B, T, N)
+    tt, ot = torch.from_numpy(tiles).to(cuda), torch.from_numpy(ops).to(cuda)
+    before = K.launch_counts["dse_eval"]
+    got = K.dse_eval(tt, ot)
+    torch.cuda.synchronize()
+    assert K.launch_counts["dse_eval"] == before + 1
+    ref = P.dse_eval_ref(tt, ot).cpu().numpy()
+    out = got.cpu().numpy()
+    fin = np.isfinite(ref[..., 0])
+    np.testing.assert_allclose(out[..., 0][fin], ref[..., 0][fin], rtol=1e-5)
+    np.testing.assert_allclose(out[..., 1], ref[..., 1], rtol=1e-4, atol=1.0)
+    assert (np.isfinite(out[..., 0]) == fin).all()
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_no_hostable_tile(cuda):
+    tiles = np.zeros((2, 4, P.TILE_FIELDS), np.float32)
+    tiles[..., 3] = 1e9
+    tiles[..., 8] = [1.5, 2.0, 3.0, 4.0]
+    tiles[1, :, 0] = 1.0
+    ops = np.array([[0, 1000, 10, 100, 1, 1, 0],
+                    [1, 0, 50, 100, 1, 1, 0]], np.float32)
+    got = K.dse_eval(torch.from_numpy(tiles).to(cuda),
+                     torch.from_numpy(ops).to(cuda)).cpu().numpy()
+    assert np.isinf(got[..., 0]).all()
+    np.testing.assert_allclose(got[..., 1],
+                               np.broadcast_to(ops[:, 1] * 1.5
+                                               + ops[:, 2] * 0.5, (2, 2)),
+                               rtol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["latency", "throughput"])
+def test_engine_on_card_matches_cpu(cuda, mode):
+    g = random_genomes(np.random.default_rng(5), 32)
+    wl = ["kan", "resnet50_int8"]
+    cfg = EngineConfig(backend="batched", mode=mode)
+    on_card = EvalEngine(wl, config=cfg).evaluate(g)
+    on_cpu = EvalEngine(wl, config=cfg, device="cpu").evaluate(g)
+    for k in ("latency", "energy", "tops_w"):
+        a, b = on_card[k], on_cpu[k]
+        fin = np.isfinite(b)
+        assert np.array_equal(fin, np.isfinite(a)), k
+        err = np.abs(a[fin] - b[fin]) / np.maximum(np.abs(b[fin]), 1e-300)
+        assert err.max(initial=0.0) <= 1e-9, (k, err.max())

@@ -1,0 +1,39 @@
+"""PyTorch port, isolation: importing every module of ``repro_torch``
+loads neither ``jax`` nor any module of the reference package."""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    names.append(info.name)
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == [], out["bad"]
+    for mod in ("repro_torch.core.simulator.costs",
+                "repro_torch.core.dse.engine", "repro_torch.kernels.ops",
+                "repro_torch.kernels.dse_eval",
+                "repro_torch.core.dse.prefilter"):
+        assert mod in out["modules"], mod
