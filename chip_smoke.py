@@ -7,9 +7,11 @@ Phases (each prints one ``[n name]`` line; any failure raises and the
 script exits non-zero without printing a result):
 
 1. card      -- the card's name and power limit from ``nvidia-smi``;
-2. build     -- compiles the hand-written CUDA ``dse_eval`` kernel from
-                ``src/repro_torch/csrc/dse_eval.cu`` (``nvcc``, ``sm_90a``);
-3. kernel    -- the kernel against its plain PyTorch version on the card,
+2. build     -- compiles every hand-written CUDA kernel of the port
+                (``src/repro_torch/csrc/*.cu``: dse_eval, flash_attention,
+                ssm_scan) with ``nvcc`` for ``sm_90a``, one process each,
+                all started together;
+3. kernel    -- dse_eval against its plain PyTorch version on the card,
                 at the main path's shapes (4,096 genomes x the op rows of
                 all 20 workloads) and on the no-hostable-tile case, with
                 tests/test_kernels.py's tolerances; times both with CUDA
@@ -19,22 +21,44 @@ script exits non-zero without printing a result):
                 4,096 random genomes on the 20 workloads, then again
                 (all memo hits);
 5. prefilter -- ``roofline_bounds`` on the same 4,096 x 20 (the kernel's
-                caller).  Phases 4 and 5 are the main path: the launch
+                caller).  Phases 4 and 5 are the DSE path: the launch
                 counters are zeroed just before phase 4 and read just
-                after phase 5, and the kernel must have launched;
+                after phase 5, and dse_eval must have launched;
 6. throughput-- the engine in throughput mode, 4 workloads x 1,024;
 7. card vs CPU -- the same engine on ``cpu`` and on ``cuda`` for 64 genomes
                 x 3 workloads in both modes (ok masks equal, metrics within
                 rel 1e-9), and the port on ``hetero_bls()`` against the
-                golden traces in tests/golden (rtol 1e-6).
+                golden traces in tests/golden (rtol 1e-6);
+8. build     -- loads flash_attention and ssm_scan (built in phase 2) and
+                prints their build seconds;
+9. lm kernels -- both at the first prefill wave's shapes (batch 4, 512
+                tokens, bf16) against their plain versions (flash 2e-2,
+                ssm_scan 5e-2), timed with CUDA events beside the plain
+                version, the bound and, for flash,
+                ``scaled_dot_product_attention`` (a yardstick only);
+10. serve    -- the LM main path: Jamba-v0.1 at full width, one period of
+                8 layers, random weights from ``torch.Generator`` seed 0,
+                ``ServeEngine(max_batch=4, max_len=1024)`` serving 8
+                requests (prompts of 128-512 tokens, 8-32 new tokens), once
+                cold and once measured.  The counters are zeroed just before
+                the measured run and read just after: each admission wave
+                (W >= 2) launches flash_attention once and ssm_scan once per
+                Mamba2 layer (7 W);
+11. serve card vs CPU -- reduced Jamba (16 layers) with the same weights
+                on both devices, layer by layer, for a prefill and 4
+                decode steps, within 2e-2.
 
-Then one JSON line describing the kernel (times, launches, bound) and, as
-the last line, ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
-writes every number to a JSON file.
+Then one JSON line describing the kernels (times, launches, bounds) and,
+as the last line, ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
+writes every number to a JSON file; ``--profile`` adds torch.profiler
+traces of one DSE micro-batch (4b) and of one prefill wave and one decode
+step (10b).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -44,9 +68,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate.
-# (Both assume the full 700 W power limit.)
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense bf16 on
+# the tensor cores, HBM3 rate.  (All assume the full 700 W power limit.)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
 DEVICE = "cuda"
@@ -58,6 +83,17 @@ THROUGHPUT_WORKLOADS = ["kan", "resnet50_int8", "hyena_1_3b",
 PARITY_WORKLOADS = ["kan", "resnet50_int8", "hyena_1_3b"]
 GOLDEN_WORKLOADS = ["resnet50_int8", "vit_b16_fp16", "llama7b_int4",
                     "snn_vgg9", "hyena_1_3b", "kan"]
+
+# the LM serving path: Jamba-v0.1 at full width, one period of 8 layers
+LM_ARCH = "jamba-v0.1-52b"
+LM_LAYERS = 8
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_REQUESTS = 4, 1024, 8
+PROMPT_LENS = (128, 256, 384, 512)   # multiples of the SSD chunk (64)
+NEW_TOKENS = (8, 16, 24, 32)
+PARITY_LAYERS = 16                   # reduced Jamba, repeat axis at 2
+PARITY_DECODE_STEPS = 4
+LM_TOL = 2e-2                        # bf16, rtol and atol
+SSM_TOL = 5e-2                       # tests/test_kernels.py, bf16
 
 # fp32 operations the kernel's formula needs per (candidate, op, tile
 # slot), by the op's class (src/repro_torch/csrc/dse_eval.cu):
@@ -125,25 +161,13 @@ def _compare_bounds(np, got, want):
     return float(rel.max(initial=0.0)), abs_err
 
 
-def _profile_micro_batch(torch, np, genomes, dev):
-    """Trace one engine micro-batch: ``map_and_simulate`` of resnet50_int8
-    on 1,024 genomes.  Returns wall seconds with and without the profiler,
-    the summed device time of the kernels, their count and the top five."""
+def _trace(torch, run):
+    """Run ``run`` (which ends in a synchronisation) once to warm up, once
+    timed and once under torch.profiler.  Returns wall seconds with and
+    without the profiler, the summed device time of the kernels, their
+    count, the device's busy share of the profiled wall and the top five
+    kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core.compiler.batched_mapper import map_and_simulate
-    from repro_torch.core.dse.engine import genomes_to_configs, \
-        prepared_workload
-    from repro_torch.core.simulator.batched import place_configs
-
-    ws = prepared_workload("resnet50_int8")
-    cfgs = genomes_to_configs(genomes[:1024])
-    placed = place_configs(cfgs, dev)
-
-    def run():
-        map_and_simulate(ws, cfgs, device=dev, placed=placed,
-                         placements=False)
-        torch.cuda.synchronize()
 
     run()
     t0 = time.perf_counter()
@@ -162,31 +186,67 @@ def _profile_micro_batch(torch, np, genomes, dev):
             n_kernels += 1
             per_name[e.name] = per_name.get(e.name, 0.0) + us
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
-    out = {"wall_s": plain_wall, "profiled_wall_s": prof_wall,
-           "device_busy_s": dev_us / 1e6, "device_kernels": n_kernels,
-           "busy_share_of_profiled_wall": dev_us / 1e6 / prof_wall,
-           "top_kernels_us": top}
+    return {"wall_s": plain_wall, "profiled_wall_s": prof_wall,
+            "device_busy_s": dev_us / 1e6, "device_kernels": n_kernels,
+            "busy_share_of_profiled_wall": dev_us / 1e6 / prof_wall,
+            "top_kernels_us": top}
+
+
+def _profile_micro_batch(torch, np, genomes, dev):
+    """Trace one engine micro-batch: ``map_and_simulate`` of resnet50_int8
+    on 1,024 genomes."""
+    from repro_torch.core.compiler.batched_mapper import map_and_simulate
+    from repro_torch.core.dse.engine import genomes_to_configs, \
+        prepared_workload
+    from repro_torch.core.simulator.batched import place_configs
+
+    ws = prepared_workload("resnet50_int8")
+    cfgs = genomes_to_configs(genomes[:1024])
+    placed = place_configs(cfgs, dev)
+
+    def run():
+        map_and_simulate(ws, cfgs, device=dev, placed=placed,
+                         placements=False)
+        torch.cuda.synchronize()
+
+    out = _trace(torch, run)
     _phase("4b", "profile", json.dumps(out))
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", help="also write every number to this JSON")
-    ap.add_argument("--profile", action="store_true",
-                    help="also trace one engine micro-batch (resnet50_int8, "
-                         "1,024 genomes) with torch.profiler: device busy "
-                         "share and the kernels that take the time")
-    args = ap.parse_args(argv)
+def _profile_serve_steps(torch, model, cfg, dev):
+    """Trace one (4, 512) prefill wave and one decode step of the serving
+    path on the full-width model."""
+    from repro_torch.models.model import decode_step
+    from repro_torch.serve.step import make_prefill_step
 
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs the "
-              "GPU", file=sys.stderr)
-        return 2
+    g = torch.Generator(device=dev).manual_seed(10)
+    toks = torch.randint(0, cfg.vocab, (SERVE_BATCH, max(PROMPT_LENS)),
+                         generator=g, device=dev, dtype=torch.int32)
+    prefill = make_prefill_step(cfg, SERVE_MAX_LEN)
+    with torch.no_grad():
+        logits, caches = prefill(model, toks)
+        nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+        pos = torch.full((SERVE_BATCH,), toks.shape[1], dtype=torch.int32,
+                         device=dev)
 
-    import numpy as np
+        def run_prefill():
+            prefill(model, toks)
+            torch.cuda.synchronize()
 
+        def run_decode():   # advances the caches by one step each call
+            decode_step(model, nxt, pos, caches)
+            torch.cuda.synchronize()
+
+        out = {"prefill": _trace(torch, run_prefill),
+               "decode": _trace(torch, run_decode)}
+    _phase("10b", "profile", json.dumps(out))
+    return out
+
+
+def _dse_phases(torch, np, dev, args, record):
+    """Phases 3-7, the DSE evaluation path; returns the kernel line of
+    ``dse_eval``.  Its tensors are freed when it returns."""
     from repro_torch.core.arch import hetero_bls
     from repro_torch.core.compiler.batched_mapper import map_and_simulate
     from repro_torch.core.dse.api import EngineConfig
@@ -197,30 +257,11 @@ def main(argv=None) -> int:
     from repro_torch.core.simulator.batched import (place_configs,
                                                     stack_chip_configs)
     from repro_torch.core.workloads import workload_names
-    from repro_torch.kernels import dse_eval as kbuild
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
 
-    t_start = time.perf_counter()
-    dev = torch.device(DEVICE)
-    record = {}
-
-    # ---- 1. card -----------------------------------------------------------
-    card = _card_line()
-    print(card, flush=True)
-    record["card"] = card
-    kind = torch.cuda.get_device_name(0)
-    _phase(1, "card", f"{card} | torch {torch.__version__} cuda "
-           f"{torch.version.cuda} | {kind} x {torch.cuda.device_count()}")
-
-    # ---- 2. build ----------------------------------------------------------
-    build_s = kbuild.build_seconds()
-    record["build_s"] = build_s
-    _phase(2, "build", f"dse_eval built and loaded in {build_s:.3f} s "
-           f"({' '.join(kbuild.NVCC_FLAGS)})")
-
-    # ---- 3. kernel against its plain version -------------------------------
     names = workload_names()
+    # ---- 3. kernel against its plain version -------------------------------
     genomes = random_genomes(np.random.default_rng(0), POPULATION)
     cfgs = genomes_to_configs(genomes)
     placed = place_configs(cfgs, dev)
@@ -419,13 +460,337 @@ def main(argv=None) -> int:
            f"({len(GOLDEN_WORKLOADS)} workloads x 2 modes on cuda) max rel "
            f"err {golden_worst:.3e} (limit 1e-6)")
 
-    kernels = [{
+    return {
         "name": "dse_eval", "route": "cuda",
         "source": "src/repro_torch/csrc/dse_eval.cu",
         "replaces": "src/repro/kernels/dse_eval.py:79",
         "launches": main_launches["dse_eval"], "max_abs_err": max_abs,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]
+        "bound_by": bound_by, "library_ms": None}
+
+
+def _max_err(got, want, tol):
+    """Max abs error of ``got`` against ``want`` (as float32); fails if
+    any element is off by more than ``tol * (1 + |want|)``."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = err > tol + tol * want.abs()
+    check(not bool(bad.any()), f"{int(bad.sum())} of {bad.numel()} elements "
+          f"outside rtol/atol {tol} (max abs err {float(err.max()):.4g})")
+    return float(err.max())
+
+
+def _lm_kernel_phase(torch, dev):
+    """Phase 9: flash_attention and ssm_scan at the first prefill wave's
+    shapes against their plain versions, timed beside their bounds and,
+    for flash, beside scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config(LM_ARCH)
+    B, S, L = SERVE_BATCH, max(PROMPT_LENS), 64
+    H, D = cfg.n_heads, cfg.head_dim
+    Hs, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf16 = torch.bfloat16
+    q, k, v = (torch.randn((B, H, S, D), generator=g, device=dev).to(bf16)
+               for _ in range(3))
+    x = torch.randn((B, S, Hs, P), generator=g, device=dev).to(bf16)
+    dt = 0.01 + 0.19 * torch.rand((B, S, Hs), generator=g, device=dev)
+    a_log = torch.log(torch.arange(1, Hs + 1, dtype=torch.float32,
+                                   device=dev))
+    b, c = (torch.randn((B, S, N), generator=g, device=dev).to(bf16)
+            for _ in range(2))
+    flash = (lambda: kops.flash_attention(q, k, v, causal=True),
+             lambda: kref.flash_attention_ref(q, k, v, causal=True))
+    ssm = (lambda: kops.ssm_scan(x, dt, a_log, b, c, chunk=L),
+           lambda: kref.ssm_scan_ref(x, dt, a_log, b, c, chunk=L))
+    cases = {
+        # 2 products of 2 D flops for every visible (query, key) pair;
+        # q, k, v read and o written once
+        "flash_attention": dict(
+            run=flash, tol=LM_TOL, ops=4 * D * B * H * S * (S + 1) // 2,
+            bytes=4 * q.numel() * q.element_size(),
+            library=lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)),
+        # 2 L (L N + L P + 2 N P) flops per (batch, head, chunk); x, dt,
+        # a_log, b, c read and y written once
+        "ssm_scan": dict(
+            run=ssm, tol=SSM_TOL,
+            ops=2 * L * (L * N + L * P + 2 * N * P) * B * Hs * (S // L),
+            bytes=2 * x.numel() * x.element_size() + dt.numel() * 4
+            + a_log.numel() * 4 + 2 * b.numel() * b.element_size(),
+            library=None)}
+    out = {}
+    for name, cs in cases.items():
+        kernel, plain = cs["run"]
+        err = _max_err(kernel(), plain(), cs["tol"])
+        ops_ms = cs["ops"] / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = cs["bytes"] / PEAK_HBM_BYTES_PER_S * 1e3
+        r = out[name] = {
+            "max_abs_err": err, "ms": _time_ms(torch, kernel, 20),
+            "plain_ms": _time_ms(torch, plain, 5),
+            "library_ms": None if cs["library"] is None
+            else _time_ms(torch, cs["library"], 20),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops": cs["ops"], "bytes": cs["bytes"]}
+        lib = "none (no single PyTorch call computes it)" \
+            if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms (scaled_dot_product_attention)"
+        _phase(9, "lm kernels", f"{name} at B {B}, S {S}, bf16: max abs err "
+               f"{err:.4g} (limit {cs['tol']} rel + abs); kernel "
+               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+               f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {cs['ops']:.4g} "
+               f"flops at {PEAK_BF16_FLOPS:.3g}/s, {cs['bytes']:.4g} B at "
+               f"{PEAK_HBM_BYTES_PER_S:.3g} B/s, H100 SXM data sheet); "
+               f"library {lib}")
+    return out
+
+
+def _serve_phase(torch, np, dev, profile):
+    """Phase 10, the LM main path: ServeEngine on full-width Jamba-v0.1
+    (one period of 8 layers) serving 8 requests in admission waves, once
+    cold and once measured (the same requests, the same tokens)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.model import Model
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    check(cfg.n_repeats == 1 and cfg.d_model == 4096,
+          f"{cfg.name}: n_repeats {cfg.n_repeats}, d_model {cfg.d_model}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 1e9
+    rng = np.random.default_rng(0)
+    lens = rng.choice(PROMPT_LENS, SERVE_REQUESTS)
+    news = rng.choice(NEW_TOKENS, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in lens]
+
+    def serve():
+        """One ServeEngine run over the 8 requests; returns the results,
+        the (shape, seconds) of every prefill and decode step and the
+        wall seconds.  Each step is timed between two synchronisations,
+        and its logits must be finite."""
+        eng = ServeEngine(cfg, model, max_batch=SERVE_BATCH,
+                          max_len=SERVE_MAX_LEN)
+        for rid, (prompt, new) in enumerate(zip(prompts, news)):
+            eng.submit(Request(rid=rid, prompt=prompt,
+                               max_new_tokens=int(new)))
+        timed = {"prefill": [], "decode": []}
+
+        def timer(kind, step):
+            def run(*a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, caches = step(*a)
+                check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+                      f"non-finite {kind} logits")
+                torch.cuda.synchronize()
+                timed[kind].append((tuple(a[1].shape),
+                                    time.perf_counter() - t))
+                return logits, caches
+            return run
+
+        eng.prefill = timer("prefill", eng.prefill)
+        eng.decode = timer("decode", eng.decode)
+        t = time.perf_counter()
+        with torch.no_grad():
+            results = eng.run()
+        return results, timed, time.perf_counter() - t
+
+    cold_results, _, cold_wall = serve()     # first use of every kernel
+    kops.reset_launch_counts()               # just before the main path
+    results, timed, wall = serve()
+    launches = dict(kops.launch_counts)      # read just after
+    check(results == cold_results, "the warm run generated other tokens")
+    waves = len(timed["prefill"])
+    check(waves >= 2, f"{waves} admission waves")
+    check(launches["flash_attention"] == waves,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"in {waves} waves")
+    n_mamba = sum(m == "mamba" for m, _ in cfg.pattern())
+    check(launches["ssm_scan"] == n_mamba * waves,
+          f"ssm_scan launched {launches['ssm_scan']} times, expected "
+          f"{n_mamba} x {waves}")
+    check(sorted(results) == list(range(SERVE_REQUESTS)), "lost requests")
+    for rid, toks in results.items():
+        check(len(toks) == int(news[rid]) and
+              all(0 <= t < cfg.vocab for t in toks),
+              f"request {rid}: {len(toks)} tokens, want {int(news[rid])}")
+    prefill_s = sum(t for _, t in timed["prefill"])
+    decode_s = sum(t for _, t in timed["decode"])
+    decode_tokens = sum(len(t) for t in results.values()) - SERVE_REQUESTS
+    out = {"init_s": init_s, "weights_gb": weights_gb,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "waves": [{"shape": sh, "ms": t * 1e3}
+                     for sh, t in timed["prefill"]],
+           "prefill_ms": prefill_s * 1e3, "decode_steps": len(timed["decode"]),
+           "decode_ms_per_step": decode_s * 1e3 / max(len(timed["decode"]), 1),
+           "decode_tokens": decode_tokens,
+           # a decode step reads every weight once (the one-hot MoE
+           # dispatch runs all experts)
+           "decode_bound_ms": weights_gb * 1e9 / PEAK_HBM_BYTES_PER_S * 1e3,
+           "decode_tokens_per_s": decode_tokens / max(decode_s, 1e-9),
+           "wall_s": wall, "cold_wall_s": cold_wall, "launches": launches}
+    _phase(10, "serve", f"{cfg.name} full width (d_model {cfg.d_model}, "
+           f"{cfg.n_layers} layers, {weights_gb:.2f} GB bf16 weights, built "
+           f"in {init_s:.2f} s), ServeEngine(max_batch={SERVE_BATCH}, "
+           f"max_len={SERVE_MAX_LEN}) on {dev}: {SERVE_REQUESTS} requests, "
+           f"prompts {lens.tolist()}, new tokens {news.tolist()}; {waves} "
+           f"waves {[w['shape'] for w in out['waves']]} prefilled in "
+           f"{out['prefill_ms']:.1f} ms "
+           f"({[round(w['ms'], 1) for w in out['waves']]}); "
+           f"{out['decode_steps']} decode steps at "
+           f"{out['decode_ms_per_step']:.2f} ms (bound "
+           f"{out['decode_bound_ms']:.2f} ms: the weights at "
+           f"{PEAK_HBM_BYTES_PER_S:.3g} B/s) = "
+           f"{out['decode_tokens_per_s']:.1f} decode tokens/s; wall "
+           f"{wall:.2f} s (the first, cold run: {cold_wall:.2f} s); max "
+           f"memory allocated "
+           f"{out['max_memory_allocated_gb']:.2f} GB; launches {launches}")
+    if profile:
+        out["profile"] = _profile_serve_steps(torch, model, cfg, dev)
+    return out
+
+
+def _card_vs_cpu_phase(torch, np, dev):
+    """Phase 11: reduced Jamba (the repeat axis at 2) with the same weights
+    on the CPU and on the card.  Each layer on the card takes the CPU
+    layer's input, for the prefill and for 4 decode steps, and its output
+    and the logits must agree within 2e-2.  (Run end to end, the two would
+    part wherever a last-bit difference flips a top-2 MoE routing choice;
+    tests/test_torch_lm_serve.py pins that sensitivity in the reference.)"""
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
+                              n_layers=PARITY_LAYERS)
+    cpu = torch.device("cpu")
+    ref = M.Model(cfg, device=cpu, generator=torch.Generator().manual_seed(0))
+    card = M.Model(cfg, device=dev, generator=None)
+    card.load_state_dict(ref.state_dict())
+    rng = np.random.default_rng(11)
+    B, S = 2, 128
+    T = S + PARITY_DECODE_STEPS
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T)).astype(
+        np.int32))
+    caches = {m: M.init_cache(cfg, B, T, m.device) for m in (ref, card)}
+    steps = [(toks[:, :S], torch.arange(S).expand(B, S))]
+    steps += [(toks[:, t:t + 1], torch.full((B, 1), t)) for t in
+              range(S, T)]
+    worst = {"layers": 0.0, "logits": 0.0}
+    with torch.no_grad():
+        for tk, pos in steps:
+            x = M._embed(ref, tk)
+            for i, layer in enumerate(ref.layers):
+                want, _ = layer(x, pos, caches[ref][i])
+                got, _ = card.layers[i](x.to(dev), pos.to(dev),
+                                        caches[card][i])
+                worst["layers"] = max(worst["layers"],
+                                      _max_err(got.cpu(), want, LM_TOL))
+                x = want
+            heads = []
+            for m in (ref, card):
+                h = M.L.norm(m.final_norm.scale, x.to(m.device), cfg.norm)
+                heads.append(M._mask_pad_logits(cfg, M.L.einsum(
+                    "bsd,dv->bsv", h, m.head()))[..., -1, :cfg.vocab])
+            worst["logits"] = max(worst["logits"],
+                                  _max_err(heads[1].cpu(), heads[0], LM_TOL))
+    _phase(11, "serve card vs CPU", f"{cfg.name} ({cfg.n_layers} layers, "
+           f"repeat axis {cfg.n_repeats}), same weights on cpu and {dev}, "
+           f"each card layer fed the CPU layer's input: prefill of {B} x {S} "
+           f"and {PARITY_DECODE_STEPS} decode steps, max abs err "
+           f"{worst['layers']:.4g} over layer outputs, {worst['logits']:.4g} "
+           f"over last-position logits (limit {LM_TOL} rel + abs)")
+    return worst
+
+
+def _lm_phases(torch, np, dev, record, build_s, profile):
+    """Phases 8-11, the LM serving path; returns the kernel lines of
+    flash_attention and ssm_scan."""
+    from repro_torch.kernels import flash_attention, ssm_scan
+
+    t0 = time.perf_counter()
+    flash_attention._library()
+    ssm_scan._library()
+    _phase(8, "build", f"flash_attention built in "
+           f"{build_s['flash_attention']:.3f} s, ssm_scan in "
+           f"{build_s['ssm_scan']:.3f} s (with phase 2's, in parallel); "
+           f"loaded in {time.perf_counter() - t0:.3f} s")
+    record["lm_kernels"] = _lm_kernel_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["serve"] = _serve_phase(torch, np, dev, profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["card_vs_cpu_lm"] = _card_vs_cpu_phase(torch, np, dev)
+    sites = {"flash_attention": "src/repro/kernels/flash_attention.py:73",
+             "ssm_scan": "src/repro/kernels/ssm_scan.py:72"}
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{name}.cu",
+             "replaces": sites[name],
+             "launches": record["serve"]["launches"][name],
+             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}
+            for name, r in record["lm_kernels"].items()]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write every number to this JSON")
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace, with torch.profiler, one DSE engine "
+                         "micro-batch (resnet50_int8, 1,024 genomes), one "
+                         "(4, 512) prefill wave and one decode step: device "
+                         "busy share and the kernels that take the time")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs the "
+              "GPU", file=sys.stderr)
+        return 2
+
+    import numpy as np
+
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE)
+    record = {}
+
+    # ---- 1. card -----------------------------------------------------------
+    card = _card_line()
+    print(card, flush=True)
+    record["card"] = card
+    kind = torch.cuda.get_device_name(0)
+    _phase(1, "card", f"{card} | torch {torch.__version__} cuda "
+           f"{torch.version.cuda} | {kind} x {torch.cuda.device_count()}")
+
+    # ---- 2. build: every kernel, one nvcc each, all started together -------
+    build_s = _build.build_all()
+    record["build_s"] = build_s
+    _phase(2, "build", f"dse_eval built in {build_s['dse_eval']:.3f} s "
+           f"(all {len(build_s)} kernels in parallel: "
+           f"{max(build_s.values()):.3f} s; {' '.join(_build.NVCC_FLAGS)})")
+
+    dse_kernel = _dse_phases(torch, np, dev, args, record)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = [dse_kernel] + _lm_phases(torch, np, dev, record, build_s,
+                                        args.profile)
+
     record["total_s"] = time.perf_counter() - t_start
     if args.out:
         with open(args.out, "w") as fh:

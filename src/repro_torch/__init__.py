@@ -1,5 +1,6 @@
 """MOSAIC on PyTorch and CUDA (NVIDIA Hopper): the port of the ``repro``
-JAX package's design-space-exploration evaluation path.
+JAX package's design-space-exploration evaluation path (``core``) and of
+its LM serving path (``models``, ``serve``).
 
 The layout mirrors ``repro`` module for module
 (``repro/core/simulator/costs.py`` -> ``repro_torch/core/simulator/costs.py``),

@@ -4,9 +4,15 @@ version.
 * ``dse_eval`` -- the per-(candidate x op) myopic roofline lower bound
   (CUDA C++, ``csrc/dse_eval.cu``), replacing the Pallas
   ``repro/kernels/dse_eval.py::dse_eval_pallas``.
+* ``flash_attention`` -- blocked online-softmax attention forward (CUDA
+  C++, ``csrc/flash_attention.cu``), replacing
+  ``repro/kernels/flash_attention.py::flash_attention_pallas``.
+* ``ssm_scan`` -- the Mamba2 SSD chunked scan (CUDA C++,
+  ``csrc/ssm_scan.cu``), replacing
+  ``repro/kernels/ssm_scan.py::ssm_scan_pallas``.
 
 ``ref`` holds the plain versions, ``ops`` the dispatch wrappers with
-their launch counters.  Nothing is compiled at import: a kernel is built
-(``nvcc``, into ``build/kernels/``) the first time a CUDA tensor reaches
-its wrapper.
+their launch counters, ``_build`` the shared ``nvcc`` build.  Nothing is
+compiled at import: a kernel is built (``nvcc``, into ``build/kernels/``)
+the first time a CUDA tensor reaches its wrapper.
 """

@@ -1,15 +1,22 @@
 """Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
 
-``dse_eval_ref`` ports ``repro/kernels/ref.py::dse_eval_ref`` line for
-line; it is the semantics of record the CUDA kernel is held to.  The CPU
-path of ``kernels.ops`` and the tests use it; on the card,
-``chip_smoke.py`` compares the kernel with it.
+``dse_eval_ref`` and ``flash_attention_ref`` port the functions of the
+same names in ``repro/kernels/ref.py`` line for line; ``ssm_scan_ref``
+delegates, as the reference does, to the model's chunked SSD scan
+(``models.layers.ssd_scan_ref``).  They are the semantics of record the
+CUDA kernels are held to.  The CPU path of ``kernels.ops`` and the tests
+use them; on the card, ``chip_smoke.py`` compares the kernels with them.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["dse_eval_ref", "OP_FIELDS", "TILE_FIELDS"]
+from ..numerics import einsum
+
+__all__ = ["dse_eval_ref", "flash_attention_ref", "ssm_scan_ref",
+           "OP_FIELDS", "TILE_FIELDS"]
 
 # packed layouts shared with the kernel ---------------------------------------
 # op row: [op_cls, macs, elems, bytes_total, seq_len, sfu_kind, sfu_n]
@@ -74,3 +81,26 @@ def dse_eval_ref(tiles: torch.Tensor, ops: torch.Tensor) -> torch.Tensor:
     return torch.cat([_dse_eval_rows(tiles[s:s + step], ops)
                       for s in range(0, B, step)], dim=0) if B else \
         torch.empty((0, N, 2), dtype=tiles.dtype, device=tiles.device)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q: (B,H,S,D), k/v: (B,H,T,D).  fp32 softmax, output q.dtype.  The
+    scores are taken in q's dtype first (bf16 scores round to bf16), as
+    the reference's einsum does."""
+    s = einsum("bhsd,bhtd->bhst", q, k).float()
+    s = s / math.sqrt(q.shape[-1])
+    if causal:
+        S, T = s.shape[-2], s.shape[-1]
+        tpos = torch.arange(T, device=q.device)
+        spos = torch.arange(S, device=q.device)
+        s = s.masked_fill(tpos[None, :] > spos[:, None] + (T - S), -1e30)
+    w = torch.softmax(s, dim=-1)
+    return einsum("bhst,bhtd->bhsd", w.to(q.dtype), v)
+
+
+def ssm_scan_ref(x, dt, a_log, b, c, chunk: int = 64) -> torch.Tensor:
+    """Delegates to the model's chunked SSD scan (single source of
+    truth)."""
+    from ..models.layers import ssd_scan_ref
+    return ssd_scan_ref(x, dt, a_log, b, c, chunk=chunk)

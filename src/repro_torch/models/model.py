@@ -1,0 +1,183 @@
+"""Model assembly on PyTorch: the parts of ``repro/models/model.py`` on
+the serving path.
+
+The reference scans over ``n_repeats`` periods of the config's layer
+pattern with stacked params; the port unrolls them into one
+``nn.ModuleList`` of ``n_layers`` blocks, where layer
+``i = r * len(pattern) + j`` holds the reference's
+``params["blocks"][j][r]``.  Caches are one dict per layer.
+
+Entry points:
+  Model(cfg, device=..., generator=...)   -> the weights (bf16)
+  forward(model, tokens)                  -> logits (prefill, every position)
+  init_cache(cfg, batch, max_len, device) -> per-layer decode caches
+  decode_step(model, tokens, pos, caches) -> (logits, caches)  [serve_step]
+
+Configs that need what this slice of the port does not carry (MLA,
+cross-attention, an encoder, a modality frontend, an unscanned dense
+prefix) raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+import torch.nn as nn
+
+from ..device import resolve_device
+from . import layers as L
+from .config import ModelConfig
+
+__all__ = ["Block", "Model", "check_supported", "forward", "init_cache",
+           "decode_step"]
+
+LayerCache = Optional[L.Cache]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    missing = [what for what, needed in (
+        ("MLA attention", cfg.mla),
+        ("cross-attention mixers", cfg.cross_attn_every),
+        ("an encoder", cfg.encoder_layers),
+        (f"the {cfg.frontend} frontend", cfg.frontend != "none"),
+        ("the unscanned dense prefix", cfg.first_k_dense)) if needed]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name} needs {', '.join(missing)}, which the port does "
+            f"not carry yet")
+
+
+class Block(nn.Module):
+    """One layer: pre-norm mixer (attention or Mamba2), then pre-norm FFN
+    (dense, MoE or none).  ``norm2`` exists even without an FFN, as in the
+    reference's param tree."""
+
+    def __init__(self, cfg: ModelConfig, mixer: str, ffn_kind: str, *,
+                 device, generator):
+        super().__init__()
+        self.mixer, self.ffn_kind = mixer, ffn_kind
+        self.norm1 = L.Norm(cfg.d_model, cfg.norm, device=device)
+        self.norm2 = L.Norm(cfg.d_model, cfg.norm, device=device)
+        if mixer == "mamba":
+            self.mamba = L.Mamba2(cfg, device=device, generator=generator)
+        else:
+            self.attn = L.Attention(cfg, device=device, generator=generator)
+        if ffn_kind == "moe":
+            self.ffn = L.MoE(cfg, device=device, generator=generator)
+        elif ffn_kind == "dense":
+            self.ffn = L.FFN(cfg, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: LayerCache):
+        h = self.norm1(x)
+        if self.mixer == "mamba":
+            y, cache = self.mamba(h, cache)
+        else:
+            y, cache = self.attn(h, positions, cache)
+        x = x + y
+        if self.ffn_kind != "none":
+            x = x + self.ffn(self.norm2(x))
+        return x, cache
+
+
+class Model(nn.Module):
+    """The LM's weights.  ``generator`` draws them (same shapes, scales and
+    dtypes as the reference's ``init_params``); ``None`` leaves them
+    uninitialised for ``models.convert.params_from_jax``.  ``device=None``
+    means the card (see ``repro_torch.device``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_supported(cfg)
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed = L._normal((cfg.vocab_padded, cfg.d_model),
+                               1.0 / math.sqrt(cfg.d_model), dev, generator)
+        self.final_norm = L.Norm(cfg.d_model, cfg.norm, device=dev)
+        self.lm_head = None if cfg.tie_embeddings else L.Dense(
+            cfg.d_model, cfg.vocab_padded, device=dev, generator=generator)
+        self.layers = nn.ModuleList(
+            Block(cfg, mk, fk, device=dev, generator=generator)
+            for mk, fk in cfg.pattern() * cfg.n_repeats)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def head(self) -> torch.Tensor:
+        return self.embed.T if self.lm_head is None else self.lm_head.w
+
+
+def _run_blocks(model: Model, x: torch.Tensor, positions: torch.Tensor,
+                caches: Optional[List[LayerCache]]):
+    new = []
+    for i, layer in enumerate(model.layers):
+        x, c = layer(x, positions, None if caches is None else caches[i])
+        new.append(c)
+    return x, (new if caches is not None else None)
+
+
+def _mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.vocab_padded == cfg.vocab:
+        return logits
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return logits.masked_fill(col >= cfg.vocab, -1e30)
+
+
+def _embed(model: Model, tokens: torch.Tensor) -> torch.Tensor:
+    return model.embed[tokens.long()].to(L.DTYPE)
+
+
+def forward(model: Model, tokens: torch.Tensor) -> torch.Tensor:
+    """Prefill forward over every position.  tokens (B, S) -> logits
+    (B, S, vocab_padded), pad columns at -1e30."""
+    B, S = tokens.shape
+    x = _embed(model, tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    x, _ = _run_blocks(model, x, positions, None)
+    x = L.norm(model.final_norm.scale, x, model.cfg.norm)
+    return _mask_pad_logits(model.cfg,
+                            L.einsum("bsd,dv->bsv", x, model.head()))
+
+
+def _init_layer_cache(cfg: ModelConfig, mixer: str, B: int, T: int,
+                      device) -> L.Cache:
+    if mixer == "mamba":
+        return {"conv": torch.zeros((B, cfg.ssm_conv_width,
+                                     cfg.d_inner + 2 * cfg.ssm_state),
+                                    dtype=L.DTYPE, device=device),
+                "ssm": torch.zeros((B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                    cfg.ssm_state), dtype=torch.float32,
+                                   device=device)}
+    hd = cfg.head_dim
+    return {"k": torch.zeros((B, T, cfg.n_kv_heads, hd), dtype=L.DTYPE,
+                             device=device),
+            "v": torch.zeros((B, T, cfg.n_kv_heads, hd), dtype=L.DTYPE,
+                             device=device),
+            "len": torch.zeros((B,), dtype=torch.int32, device=device)}
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None
+               ) -> List[L.Cache]:
+    """One cache per layer, in layer order."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [_init_layer_cache(cfg, mk, B, max_len, dev)
+            for mk, _ in cfg.pattern() * cfg.n_repeats]
+
+
+def decode_step(model: Model, tokens: torch.Tensor, pos: torch.Tensor,
+                caches: List[L.Cache]):
+    """One-token decode against the KV/SSM caches, which it updates in
+    place.  tokens: (B, 1); pos: (B,) absolute positions.  Returns
+    (logits (B, 1, vocab_padded), caches)."""
+    if tokens.dim() != 2 or tokens.shape[1] != 1:
+        raise ValueError(f"decode_step takes (B, 1) tokens, got "
+                         f"{tuple(tokens.shape)}")
+    x = _embed(model, tokens)
+    x, caches = _run_blocks(model, x, pos[:, None], caches)
+    x = L.norm(model.final_norm.scale, x, model.cfg.norm)
+    logits = L.einsum("bsd,dv->bsv", x, model.head())
+    return _mask_pad_logits(model.cfg, logits), caches

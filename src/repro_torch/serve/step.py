@@ -1,0 +1,45 @@
+"""Serving steps (a port of ``repro/serve/step.py``).
+
+``prefill_step``: run the prompt through the stack writing fresh caches,
+return last-token logits + caches.  ``decode_step`` (serve_step): one new
+token against the caches.  The steps take the model where the reference
+takes its param tree.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..models import layers as L
+from ..models.config import ModelConfig
+from ..models.model import (Model, _embed, _mask_pad_logits, _run_blocks,
+                            decode_step as _decode, init_cache)
+
+__all__ = ["make_prefill_step", "make_decode_step", "greedy_sample"]
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int):
+    def prefill_step(model: Model, tokens: torch.Tensor):
+        B, S = tokens.shape
+        caches = init_cache(cfg, B, max_len, model.device)
+        x = _embed(model, tokens)
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        x, caches = _run_blocks(model, x, positions, caches)
+        x = L.norm(model.final_norm.scale, x[:, -1:], cfg.norm)
+        logits = L.einsum("bsd,dv->bsv", x, model.head())
+        return _mask_pad_logits(cfg, logits), caches
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    def decode_step(model: Model, tokens: torch.Tensor, pos: torch.Tensor,
+                    caches):
+        return _decode(model, tokens, pos, caches)
+
+    return decode_step
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """Arg-max of the last position; ties go to the first index, as
+    ``jnp.argmax``."""
+    return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)

@@ -1,7 +1,8 @@
-"""PyTorch port on the card: the hand-written CUDA ``dse_eval`` kernel
-against its plain version, and the batched engine on ``cuda`` against the
-same engine on the CPU.  Every test here needs an NVIDIA GPU (and nvcc);
-elsewhere each one skips with its reason.  Torch only, no JAX, so the
+"""PyTorch port on the card: the hand-written CUDA kernels (``dse_eval``,
+``flash_attention``, ``ssm_scan``) against their plain versions, and the
+batched engine on ``cuda`` against the same engine on the CPU.  Every test
+here needs an NVIDIA GPU (and nvcc); elsewhere each one skips with its
+reason.  Torch only, no JAX, so the
 file runs on the GPU machine:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import numpy as np
@@ -88,3 +89,64 @@ def test_engine_on_card_matches_cpu(cuda, mode):
         assert np.array_equal(fin, np.isfinite(a)), k
         err = np.abs(a[fin] - b[fin]) / np.maximum(np.abs(b[fin]), 1e-300)
         assert err.max(initial=0.0) <= 1e-9, (k, err.max())
+
+
+def _bf16_tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1, 128, 64), (2, 3, 256, 64),
+                                   (4, 32, 512, 128), (1, 2, 100, 16),
+                                   (2, 4, 192, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_matches_plain_version(cuda, shape, dtype,
+                                                    causal):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    before = K.launch_counts["flash_attention"]
+    got = K.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert K.launch_counts["flash_attention"] == before + 1
+    want = P.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **_bf16_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,T", [(128, 256), (256, 128), (70, 130)])
+def test_cuda_flash_attention_cross_lengths(cuda, S, T):
+    """T > S offsets the causal diagonal; T < S leaves rows that see no
+    key, which average every key as the reference does."""
+    g = torch.Generator(device=cuda).manual_seed(S + T)
+    q = torch.randn((1, 2, S, 64), generator=g, device=cuda)
+    k = torch.randn((1, 2, T, 64), generator=g, device=cuda)
+    v = torch.randn((1, 2, T, 64), generator=g, device=cuda)
+    torch.testing.assert_close(K.flash_attention(q, k, v),
+                               P.flash_attention_ref(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 64, 2, 16, 8), (2, 128, 3, 32, 16),
+                                   (1, 256, 4, 64, 32), (4, 512, 128, 64, 16),
+                                   (1, 128, 2, 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssm_scan_matches_plain_version(cuda, shape, dtype):
+    B, S, H, Pd, N = shape
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    x = torch.randn((B, S, H, Pd), generator=g, device=cuda).to(dtype)
+    dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=g, device=cuda)
+    al = 2 * torch.rand((H,), generator=g, device=cuda) - 1
+    b = torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
+    c = torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
+    before = K.launch_counts["ssm_scan"]
+    got = K.ssm_scan(x, dt, al, b, c, chunk=64)
+    torch.cuda.synchronize()
+    assert K.launch_counts["ssm_scan"] == before + 1
+    want = P.ssm_scan_ref(x, dt, al, b, c, chunk=min(64, S))
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+

@@ -1,5 +1,6 @@
 """PyTorch port, isolation: importing every module of ``repro_torch``
-loads neither ``jax`` nor any module of the reference package."""
+loads neither ``jax`` (nor ``ml_dtypes``, which JAX's bf16 arrays carry)
+nor any module of the reference package."""
 import json
 import os
 import subprocess
@@ -19,6 +20,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "ml_dtypes" or m.startswith("ml_dtypes.")
              or m == "repro" or m.startswith("repro."))
 print(json.dumps({"modules": names, "bad": bad}))
 """
@@ -35,5 +37,13 @@ def test_port_imports_no_jax_and_no_reference():
     for mod in ("repro_torch.core.simulator.costs",
                 "repro_torch.core.dse.engine", "repro_torch.kernels.ops",
                 "repro_torch.kernels.dse_eval",
-                "repro_torch.core.dse.prefilter"):
+                "repro_torch.core.dse.prefilter",
+                "repro_torch.kernels._build",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.ssm_scan", "repro_torch.numerics",
+                "repro_torch.models.config", "repro_torch.models.registry",
+                "repro_torch.models.layers", "repro_torch.models.model",
+                "repro_torch.models.convert", "repro_torch.launch.tuning",
+                "repro_torch.serve.step", "repro_torch.serve.engine",
+                "repro_torch.configs.jamba_v0_1_52b"):
         assert mod in out["modules"], mod
