@@ -9,8 +9,9 @@ script exits non-zero without printing a result):
 1. card      -- the card's name and power limit from ``nvidia-smi``;
 2. build     -- compiles every hand-written CUDA kernel of the port
                 (``src/repro_torch/csrc/*.cu``: dse_eval, flash_attention,
-                ssm_scan) with ``nvcc`` for ``sm_90a``, one process each,
-                all started together;
+                flash_attention_bwd, ssm_scan, ssm_scan_bwd, horner) with
+                ``nvcc`` for ``sm_90a``, one process each, all started
+                together;
 3. kernel    -- dse_eval against its plain PyTorch version on the card,
                 at the main path's shapes (4,096 genomes x the op rows of
                 all 20 workloads) and on the no-hostable-tile case, with
@@ -46,13 +47,41 @@ script exits non-zero without printing a result):
                 Mamba2 layer (7 W);
 11. serve card vs CPU -- reduced Jamba (16 layers) with the same weights
                 on both devices, layer by layer, for a prefill and 4
-                decode steps, within 2e-2.
+                decode steps, within 2e-2;
+12. lm backward kernels -- ssm_scan_bwd at phase 14's shapes and
+                flash_attention_bwd at phase 15's against autograd of their
+                plain versions (5e-2 and 2e-2 of each gradient's largest
+                magnitude, bf16), timed beside the plain version's
+                backward, the bound and, for flash, the backward of
+                ``scaled_dot_product_attention`` (a yardstick only);
+13. horner   -- the KAN workload's first layer, 784 x 512 edge polynomials
+                of degree 8 over a batch of 64 (25.7 M elements), in
+                float32 and bfloat16 through ``ops.horner``, bit for bit
+                against the plain version, timed beside its byte bound;
+14. train    -- the slice's main path: ``train_loop`` on mamba2-780m at
+                full width and depth (48 layers, 0.78e9 parameters),
+                global batch 8 x 2,048 tokens, 6 steps, remat, float32
+                moments, one checkpoint at the end (deleted after).  The
+                counters are zeroed just before and read just after:
+                ssm_scan launches twice per layer and step (the forward
+                and its rematerialisation), ssm_scan_bwd once;
+15. train attention -- starcoder2-15b at full width, depth cut from 40 to
+                4 layers (the whole model's train state does not fit one
+                card): ``train_loop`` for 4 steps of batch 4 x 2,048,
+                remat, float32 moments, one checkpoint at the end (deleted
+                after); flash_attention launches twice and
+                flash_attention_bwd once per layer and step;
+16. train card vs CPU -- one training step's loss and gradients of reduced
+                Jamba, mamba2 and starcoder2 with the same weights on both
+                devices, in bf16 and in float32 (Jamba's gradients layer by
+                layer), per leaf; planted faults (a layer in float8, a
+                layer dropped, a zeroed dq or db) must be rejected.
 
 Then one JSON line describing the kernels (times, launches, bounds) and,
 as the last line, ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
 writes every number to a JSON file; ``--profile`` adds torch.profiler
-traces of one DSE micro-batch (4b) and of one prefill wave and one decode
-step (10b).
+traces of one DSE micro-batch (4b), of one prefill wave and one decode
+step (10b) and of one training step of each training phase (14b, 15b).
 """
 from __future__ import annotations
 
@@ -61,6 +90,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -94,6 +124,39 @@ PARITY_LAYERS = 16                   # reduced Jamba, repeat axis at 2
 PARITY_DECODE_STEPS = 4
 LM_TOL = 2e-2                        # bf16, rtol and atol
 SSM_TOL = 5e-2                       # tests/test_kernels.py, bf16
+
+# the LM training path
+TRAIN_SEQ = 2048
+TRAIN_SSM_ARCH, TRAIN_SSM_BATCH, TRAIN_SSM_STEPS = "mamba2-780m", 8, 6
+TRAIN_ATTN_ARCH, TRAIN_ATTN_LAYERS = "starcoder2-15b", 4
+TRAIN_ATTN_BATCH, TRAIN_ATTN_STEPS = 4, 4
+# AdamW's first updates move every weight by about the rate, and a layer's
+# output by about that times its fan-in (24,576 in starcoder2's FFN, 3,072
+# in mamba2's out_proj), so the wider model takes the smaller rate (with
+# 0.1 for both, starcoder2's loss rose from 11.9 to 24.5 at step 3 on an
+# NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  warmup_cosine scales each by
+# step / 200 in these first steps.
+TRAIN_SSM_LR, TRAIN_ATTN_LR = 0.02, 1e-3
+# gradients, by the error over the gradient's largest magnitude (bf16)
+FLASH_BWD_TOL, SSM_BWD_TOL = 2e-2, 5e-2
+# card against CPU, per leaf, as tests/test_torch_train_step.py holds the
+# port against the reference: bf16 gradients within 2e-2 of each element
+# plus 2e-2 of the leaf's largest magnitude, float32 within 1e-4 of both.
+# Mamba2's d_skip gradient (a cancelling sum of bf16 products: mostly
+# rounding in bf16) is held in float32 only; the MoE router's (zero: the
+# top-k gates enter only through their sum, which is 1) within 2^-20 of
+# the largest gradient.
+GRAD_RTOL, GRAD_ATOL, F32_TOL = 2e-2, 2e-2, 1e-4
+FLOAT32_ONLY, ZERO_GRAD = ("mamba.d_skip",), ("ffn.router.w",)
+# the loss, relative: the card's bf16 losses were 1.3e-5 to 1.3e-4 (Jamba,
+# whose routing flips) from the CPU's (NVIDIA H100 80GB HBM3, 700 W), and on
+# the CPU the planted faults (the first layer's matrices through float8
+# e4m3; the last layer dropped) move it by 9.4e-4 to 4.4e-2 (PERF.md)
+LOSS_RTOL = {"bfloat16": 2e-4, "float32": 1e-5}
+TRAIN_PARITY_ARCHS = ("jamba-v0.1-52b", "mamba2-780m", "starcoder2-15b")
+# the KAN workload's first layer (src/repro/core/workloads/misc.py): 784 x
+# 512 edge polynomials of degree 8, over a batch of 64
+KAN_ELEMENTS, KAN_DEGREE = 784 * 512 * 64, 8
 
 # fp32 operations the kernel's formula needs per (candidate, op, tile
 # slot), by the op's class (src/repro_torch/csrc/dse_eval.cu):
@@ -224,7 +287,9 @@ def _profile_serve_steps(torch, model, cfg, dev):
     toks = torch.randint(0, cfg.vocab, (SERVE_BATCH, max(PROMPT_LENS)),
                          generator=g, device=dev, dtype=torch.int32)
     prefill = make_prefill_step(cfg, SERVE_MAX_LEN)
-    with torch.no_grad():
+    # the serving steps run in inference mode, and so do updates of the
+    # caches they return
+    with torch.inference_mode():
         logits, caches = prefill(model, toks)
         nxt = logits[:, -1:].argmax(-1).to(torch.int32)
         pos = torch.full((SERVE_BATCH,), toks.shape[1], dtype=torch.int32,
@@ -746,14 +811,557 @@ def _lm_phases(torch, np, dev, record, build_s, profile):
             for name, r in record["lm_kernels"].items()]
 
 
+def _grad_err(got, want, tol, what):
+    """Max abs error of a gradient against the plain version's, and that
+    error over the plain gradient's largest magnitude, which must be at
+    most ``tol``."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    check(rel <= tol, f"{what}: error {err:.4g} is {rel:.4g} of the "
+          f"largest magnitude (> {tol})")
+    return err, rel
+
+
+def _bound(ops, n_bytes, peak_ops):
+    ops_ms = ops / peak_ops * 1e3
+    bytes_ms = n_bytes / PEAK_HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
+        else "bytes"
+
+
+def _lm_bwd_kernel_phase(torch, dev):
+    """Phase 12: the two backward kernels at the training phases' shapes
+    against autograd of their plain versions, timed beside the plain
+    version's backward (its graph built once), their bounds and, for
+    flash, the backward of scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import tuning
+    from repro_torch.models.registry import get_config
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf16 = torch.bfloat16
+    out = {}
+
+    # ---- ssm_scan_bwd: mamba2-780m, batch 8 x 2,048 ----------------------
+    cfg = get_config(TRAIN_SSM_ARCH)
+    B, S, L = TRAIN_SSM_BATCH, TRAIN_SEQ, tuning.KNOBS.ssd_chunk
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    x = torch.randn((B, S, H, P), generator=g, device=dev).to(bf16)
+    dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=g, device=dev)
+    a_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                   device=dev))
+    b, c = (torch.randn((B, S, N), generator=g, device=dev).to(bf16)
+            for _ in range(2))
+    dy = torch.randn((B, S, H, P), generator=g, device=dev).to(bf16)
+    ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
+    y = kref.ssm_scan_ref(*ins, chunk=L)
+
+    def kernel():
+        return kops.ssm_scan_bwd(x, dt, a_log, b, c, dy, chunk=L)
+
+    def plain():
+        return torch.autograd.grad(y, ins, dy, retain_graph=True)
+
+    errs = [_grad_err(a, w, SSM_BWD_TOL, f"ssm_scan_bwd d{n}")
+            for n, a, w in zip(("x", "dt", "a_log", "b", "c"), kernel(),
+                               plain())]
+    # multiply-adds per (batch, head, chunk): the recomputed state, the
+    # lower triangles of Q and A, the terms of dc, db, dx and dstate
+    ops = 2 * (5 * L * P * N + L * L * (3 * N + 2 * P) // 2) * B * H * (S // L)
+    n_bytes = 3 * x.numel() * 2 + 2 * dt.numel() * 4 + 2 * H * 4 \
+        + 4 * b.numel() * 2
+    bound_ms, bound_by = _bound(ops, n_bytes, PEAK_BF16_FLOPS)
+    out["ssm_scan_bwd"] = {
+        "max_abs_err": max(e for e, _ in errs),
+        "max_rel_err": max(r for _, r in errs),
+        "ms": _time_ms(torch, kernel, 5), "plain_ms": _time_ms(torch, plain, 3),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "ops": ops, "bytes": n_bytes,
+        "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": L}}
+    del x, dt, b, c, dy, ins, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- flash_attention_bwd: starcoder2-15b, batch 4 x 2,048 ------------
+    cfg = get_config(TRAIN_ATTN_ARCH)
+    B, H, S, D = TRAIN_ATTN_BATCH, cfg.n_heads, TRAIN_SEQ, cfg.head_dim
+    q, k, v, do = (torch.randn((B, H, S, D), generator=g, device=dev).to(bf16)
+                   for _ in range(4))
+    o, lse = flash_attention_cuda(q, k, v, True, with_lse=True)
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    y = kref.flash_attention_ref(*ins, True)
+    lib_ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_y = F.scaled_dot_product_attention(*lib_ins, is_causal=True)
+
+    def kernel():
+        return kops.flash_attention_bwd(q, k, v, o, lse, do, True)
+
+    def plain():
+        return torch.autograd.grad(y, ins, do, retain_graph=True)
+
+    def library():
+        return torch.autograd.grad(lib_y, lib_ins, do, retain_graph=True)
+
+    def kernel_fwd_bwd():
+        t = [a.detach().requires_grad_() for a in (q, k, v)]
+        return torch.autograd.grad(kops.flash_attention(*t, causal=True), t,
+                                   do)
+
+    def library_fwd_bwd():
+        t = [a.detach().requires_grad_() for a in (q, k, v)]
+        return torch.autograd.grad(F.scaled_dot_product_attention(
+            *t, is_causal=True), t, do)
+
+    errs = [_grad_err(a, w, FLASH_BWD_TOL, f"flash_attention_bwd d{n}")
+            for n, a, w in zip("qkv", kernel(), plain())]
+    pairs = B * H * S * (S + 1) // 2
+    ops = 5 * 2 * D * pairs          # s, dP, dV, dK, dQ over the visible pairs
+    n_bytes = 8 * q.numel() * 2 + lse.numel() * 4   # q k v o dO in, dq dk dv out
+    bound_ms, bound_by = _bound(ops, n_bytes, PEAK_BF16_FLOPS)
+    out["flash_attention_bwd"] = {
+        "max_abs_err": max(e for e, _ in errs),
+        "max_rel_err": max(r for _, r in errs),
+        "ms": _time_ms(torch, kernel, 5), "plain_ms": _time_ms(torch, plain, 3),
+        "library_ms": _time_ms(torch, library, 10),
+        "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+        "bytes": n_bytes,
+        "fwd_bwd_ms": _time_ms(torch, kernel_fwd_bwd, 5),
+        "library_fwd_bwd_ms": _time_ms(torch, library_fwd_bwd, 10),
+        "shape": {"B": B, "H": H, "S": S, "T": S, "D": D, "causal": True}}
+    del q, k, v, do, o, lse, ins, y, lib_ins, lib_y
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        lib = "none (no single PyTorch call computes it)" \
+            if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms (the backward of " \
+            f"scaled_dot_product_attention; forward + backward: kernels " \
+            f"{r['fwd_bwd_ms']:.4f} ms, library " \
+            f"{r['library_fwd_bwd_ms']:.4f} ms)"
+        _phase(12, "lm backward kernels", f"{name} at {r['shape']}, bf16: "
+               f"max abs err {r['max_abs_err']:.4g}, at most "
+               f"{r['max_rel_err']:.4g} of a gradient's largest magnitude; "
+               f"kernel {r['ms']:.4f} ms, plain backward "
+               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+               f"({r['bound_by']}: {r['ops']:.4g} flops at "
+               f"{PEAK_BF16_FLOPS:.3g}/s, {r['bytes']:.4g} B at "
+               f"{PEAK_HBM_BYTES_PER_S:.3g} B/s, H100 SXM data sheet); "
+               f"library {lib}")
+    return out
+
+
+def _horner_phase(torch, dev):
+    """Phase 13: ``ops.horner`` on the KAN workload's first layer in
+    float32 and bfloat16, bit for bit against the plain version.  The
+    counters are zeroed just before the two calls and read just after;
+    the comparison reuses their outputs."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    cf = torch.randn((KAN_DEGREE + 1,), generator=g, device=dev)
+    xs = {"float32": torch.randn((KAN_ELEMENTS,), generator=g, device=dev)}
+    xs["bfloat16"] = xs["float32"].to(torch.bfloat16)
+    kops.reset_launch_counts()
+    ys = {k: kops.horner(x, cf) for k, x in xs.items()}
+    torch.cuda.synchronize()
+    launches = kops.launch_counts["horner"]
+    check(launches == 2, f"horner launched {launches} times, expected 2")
+    out = {"launches": launches}
+    for k, x in xs.items():
+        want = kref.horner_ref(x, cf)
+        check(ys[k].dtype == x.dtype and torch.equal(ys[k], want),
+              f"horner {k}: not bit for bit the plain version (max abs err "
+              f"{float((ys[k].float() - want.float()).abs().max()):.4g})")
+        n_bytes = 2 * x.numel() * x.element_size() + cf.numel() * 4
+        bound_ms, bound_by = _bound(2 * KAN_DEGREE * x.numel(), n_bytes,
+                                    PEAK_FP32_FLOPS)
+        out[k] = {"max_abs_err": 0.0,
+                  "ms": _time_ms(torch, lambda: kops.horner(x, cf), 20),
+                  "plain_ms": _time_ms(torch, lambda: kref.horner_ref(x, cf),
+                                       5),
+                  "library_ms": None, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "bytes": n_bytes}
+        r = out[k]
+        _phase(13, "horner", f"{k}, {KAN_ELEMENTS} elements (784 x 512 x "
+               f"64), degree {KAN_DEGREE}: bit for bit the plain version; "
+               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+               f"bound {r['bound_ms']:.4f} ms ({bound_by}: {n_bytes:.4g} B at "
+               f"{PEAK_HBM_BYTES_PER_S:.3g} B/s, H100 SXM data sheet); "
+               f"library none (no single PyTorch call computes it); "
+               f"launches in the counted run {launches}")
+    return out
+
+
+def _train_phase(torch, np, dev, n, name, cfg, batch, steps, lr, kernel,
+                 cut, profile):
+    """Phases 14 and 15: ``train_loop`` on ``cfg`` from fresh random weights
+    (seed 0) for ``steps`` steps of ``batch`` x TRAIN_SEQ tokens, remat,
+    AdamW with float32 moments, and the loop's checkpoint of the last step
+    (deleted after).  The launch counters are zeroed just before and read
+    just after: ``kernel`` (the mixer's forward) launches twice per layer
+    and step (the forward and its rematerialisation in the backward) and
+    its backward once.  ``profile`` traces one more step after the counted
+    run."""
+    from repro_torch.checkpoint.ckpt import latest_step
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainLoopConfig, train_loop
+    from repro_torch.train.step import make_train_step
+
+    opt = AdamWConfig(lr=lr)
+    ckpt_dir = os.path.join(ROOT, "build", f"chip_smoke_ckpt_{n}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    stamps, losses = [], []
+
+    def on_step(step, metrics):   # the loss was read: the step has ended
+        stamps.append(time.perf_counter())
+        losses.append(metrics["loss"])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()                  # just before the main path
+    t0 = time.perf_counter()
+    out = train_loop(cfg, TrainLoopConfig(
+        steps=steps, ckpt_every=steps, ckpt_dir=ckpt_dir, global_batch=batch,
+        seq_len=TRAIN_SEQ, resume=False), opt, on_step=on_step, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kops.launch_counts)         # read just after
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state = out.pop("state")
+    model = state["params"]
+    check(model.device.type == DEVICE, f"trained on {model.device}")
+    n_params = sum(p.numel() for p in model.parameters())
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(latest_step(ckpt_dir) == steps, "no checkpoint of the last step")
+    r = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+         "params": n_params, "batch": batch, "seq": TRAIN_SEQ,
+         "steps": steps, "losses": losses,
+         "ckpt_gb": sum(os.path.getsize(os.path.join(dp, f))
+                        for dp, _, fs in os.walk(ckpt_dir) for f in fs) / 1e9,
+         "ckpt_save_s": out["ckpt_save_s"], "ckpt_wait_s": out["ckpt_wait_s"]}
+    ckpt = (f"checkpoint of {r['ckpt_gb']:.2f} GB: "
+            f"{r['ckpt_save_s']:.2f} s in save_async (snapshot to host), "
+            f"{r['ckpt_wait_s']:.2f} s waiting for the write")
+    del out
+    mixer = "mamba" if kernel == "ssm_scan" else "attn"
+    n_mixer = sum(m == mixer for m, _ in cfg.pattern()) * cfg.n_repeats
+    check(launches[kernel] == 2 * n_mixer * steps,
+          f"{kernel} launched {launches[kernel]} times, expected 2 x "
+          f"{n_mixer} x {steps}")
+    check(launches[f"{kernel}_bwd"] == n_mixer * steps,
+          f"{kernel}_bwd launched {launches[f'{kernel}_bwd']} times, "
+          f"expected {n_mixer} x {steps}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    ms = sum(step_ms) / len(step_ms)
+    r.update({"first_step_ms": (stamps[0] - t0) * 1e3, "step_ms": step_ms,
+              "ms_per_step": ms,
+              "tokens_per_s": batch * TRAIN_SEQ / ms * 1e3,
+              "max_memory_allocated_gb": peak_gb, "wall_s": wall,
+              "launches": launches})
+    _phase(n, name, f"train_loop on {cfg.name} (d_model {cfg.d_model}, "
+           f"{cfg.n_layers} layers{cut}, {n_params / 1e9:.3f}e9 parameters) "
+           f"on {dev}: {steps} steps of {batch} x {TRAIN_SEQ} tokens, remat, "
+           f"AdamW(float32 moments, lr {lr} x warmup_cosine); "
+           f"losses {[round(x, 4) for x in losses]}; steps 2-{steps} at "
+           f"{ms:.1f} ms ({[round(x, 1) for x in step_ms]}) = "
+           f"{r['tokens_per_s']:.0f} tokens/s (step 1, with the model's "
+           f"init: {r['first_step_ms']:.0f} ms); max memory allocated "
+           f"{peak_gb:.2f} GB; {ckpt}; wall {wall:.1f} s; launches "
+           f"{launches}")
+    if profile:
+        step_fn = make_train_step(cfg, opt)
+        extra = {k: torch.from_numpy(v).to(dev)
+                 for k, v in SyntheticTokenPipeline(DataConfig(
+                     vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=batch,
+                     seed=0, d_model=cfg.d_model)).batch(steps).items()}
+
+        def run():   # reading the loss synchronises
+            nonlocal state
+            state, metrics = step_fn(state, extra)
+            float(metrics["loss"])
+
+        r["profile"] = _trace(torch, run)
+        _phase(f"{n}b", "profile", json.dumps(r["profile"]))
+    del state, model
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def _grads_off(got, want, float32=False):
+    """Per leaf, each element of ``got`` within GRAD_RTOL of itself plus
+    GRAD_ATOL of the leaf's largest magnitude in ``want`` (F32_TOL and
+    F32_TOL in ``float32``; in bf16 the leaves in FLOAT32_ONLY are
+    skipped); the leaves in ZERO_GRAD within 2^-20 of the largest gradient
+    of any leaf, on both sides.  Returns the leaves off (a line each) and
+    the largest share of its leaf's largest magnitude that an element's
+    error, less its relative part, takes (what the absolute tolerance must
+    cover)."""
+    rtol, atol = (F32_TOL, F32_TOL) if float32 else (GRAD_RTOL, GRAD_ATOL)
+    gmax = max(float(w.float().abs().max()) for w in want.values())
+    need, off = 0.0, []
+    for name, w in want.items():
+        g, w = got[name].float().cpu(), w.float().cpu()
+        if name.endswith(ZERO_GRAD):
+            big = max(float(g.abs().max()), float(w.abs().max()))
+            if big > 2.0 ** -20 * gmax:
+                off.append(f"{name} {big:.4g} where the gradient is zero "
+                           f"(largest gradient {gmax:.4g})")
+            continue
+        if not float32 and name.endswith(FLOAT32_ONLY):
+            continue
+        lmax = float(w.abs().max())
+        d = (g - w).abs()
+        bad = d > rtol * w.abs() + atol * lmax
+        if bool(bad.any()):
+            off.append(f"{name} {int(bad.sum())} of {bad.numel()} elements "
+                       f"(max abs err {float(d.max()):.4g}, the leaf's "
+                       f"largest {lmax:.4g})")
+        elif lmax > 0:
+            need = max(need, float(((d - rtol * w.abs()) / lmax).max()))
+    return off, need
+
+
+def _float32_only_spread(per_dtype):
+    """The largest distance of a FLOAT32_ONLY leaf's bf16 gradient from its
+    float32 one, over the leaf's largest magnitude (a reading)."""
+    g16, g32 = per_dtype["bfloat16"], per_dtype["float32"]
+    return max((float((g16[n].float() - g32[n]).abs().max())
+                / max(float(g32[n].abs().max()), 1e-30)
+                for n in g32 if n.endswith(FLOAT32_ONLY)), default=0.0)
+
+
+def _block_grads(torch, block, x, cot, pos):
+    """The gradients of ``block``'s output against ``cot`` for its
+    parameters and its input ``x`` ("input"), on the CPU."""
+    dtype = next(block.parameters()).dtype
+    dev = next(block.parameters()).device
+    x = x.to(dev, dtype).requires_grad_()
+    names, ps = zip(*block.named_parameters())
+    gs = torch.autograd.grad(block(x, pos.to(dev), None)[0], (x,) + ps,
+                             cot.to(dev, dtype), allow_unused=True)
+    return {n: (torch.zeros_like(p) if g is None else g).cpu()
+            for n, p, g in zip(("input",) + names, (x,) + ps, gs)}
+
+
+def _train_card_vs_cpu_phase(torch, np, dev):
+    """Phase 16: one training step's loss and gradients (``make_grads_fn``,
+    remat) of reduced Jamba, mamba2 and starcoder2 with the same weights
+    on the CPU and the card, in bf16 and with the models made float32.
+    Jamba's gradients are compared layer by layer (each card block fed
+    the CPU block's input and one random output gradient): its top-2
+    routing turns on the last bit of bf16 router logits (phase 11).
+    Planted faults must be rejected: the loss of the card's bf16 model
+    with its first layer's matrices rounded through float8 e4m3, and with
+    its last layer dropped; the gradients of the card's models with a
+    zeroed dq (starcoder2's attention) or db (mamba2's SSD scan)."""
+    import copy
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.step import make_grads_fn
+
+    cpu = torch.device("cpu")
+    out = {}
+
+    def loss_off(dtype, got, want):
+        return abs(got - want) > LOSS_RTOL[dtype] * abs(want)
+
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = get_config(arch).reduced()
+        bf16 = M.Model(cfg, device=cpu,
+                       generator=torch.Generator().manual_seed(16))
+        models = {"bfloat16": bf16, "float32": copy.deepcopy(bf16).float()}
+        batch = SyntheticTokenPipeline(DataConfig(
+            vocab=cfg.vocab, seq_len=128, global_batch=2, seed=16)).batch(0)
+        grads_of = make_grads_fn(cfg, remat=True)
+
+        def on(d, m):
+            return grads_of(m, {k: torch.from_numpy(v).to(d)
+                                for k, v in batch.items()})
+
+        def card_copy(m):
+            c = M.Model(cfg, device=dev, generator=None)
+            if m.embed.dtype == torch.float32:
+                c.float()
+            with torch.no_grad():
+                c.load_state_dict(m.state_dict())
+            return c
+
+        r, runs = {}, {}
+        for dtype, m in models.items():
+            (lc, gc_), (lg, gg) = on(cpu, m), on(dev, card_copy(m))
+            lc, lg = float(lc), float(lg)
+            check(not loss_off(dtype, lg, lc), f"{arch} {dtype}: loss {lg} "
+                  f"on the card, {lc} on the CPU")
+            r[dtype] = {"loss_cpu": lc, "loss_card": lg,
+                        "loss_rel_err": abs(lg - lc) / abs(lc)}
+            runs[dtype] = (gc_, gg)
+        spread = _float32_only_spread({t: g[0] for t, g in runs.items()})
+        if arch.startswith("jamba"):
+            rng = np.random.default_rng(16)
+            B, S = batch["tokens"].shape
+            pos = torch.arange(S).expand(B, S)
+            need = {"bfloat16": 0.0, "float32": 0.0}
+            with torch.no_grad():
+                x = M._embed(bf16, torch.from_numpy(batch["tokens"]))
+            cards = {t: card_copy(m) for t, m in models.items()}
+            for i in range(len(bf16.layers)):
+                cot = torch.from_numpy(rng.normal(size=x.shape).astype(
+                    np.float32))
+                per = {t: [_block_grads(torch, mm.layers[i], x, cot, pos)
+                           for mm in (m, cards[t])]
+                       for t, m in models.items()}
+                for t, (want, got) in per.items():
+                    off, n = _grads_off(got, want, float32=t == "float32")
+                    check(not off, f"{arch} {t} layer {i}: gradients off: "
+                          + "; ".join(off))
+                    need[t] = max(need[t], n)
+                spread = max(spread, _float32_only_spread(
+                    {t: g[0] for t, g in per.items()}))
+                with torch.no_grad():
+                    x = bf16.layers[i](x, pos, None)[0]
+            del cards
+        else:
+            need = {}
+            for t, (gc_, gg) in runs.items():
+                off, need[t] = _grads_off(gg, gc_, float32=t == "float32")
+                check(not off, f"{arch} {t}: gradients off: "
+                      + "; ".join(off))
+        for t in need:
+            r[t]["grad_atol_needed"] = need[t]
+        r["d_skip_bf16_from_float32_cpu"] = spread
+        # planted faults: the loss of a faulty bf16 forward on the card
+        lc = r["bfloat16"]["loss_cpu"]
+        for fault in ("fp8_first_layer", "drop_last_layer"):
+            m = card_copy(bf16)
+            with torch.no_grad():
+                if fault == "fp8_first_layer":
+                    for p in m.layers[0].parameters():
+                        if p.dim() >= 2:
+                            p.copy_(p.to(torch.float8_e4m3fn).to(p.dtype))
+                else:
+                    del m.layers[-1]
+            lf = float(on(dev, m)[0])
+            check(loss_off("bfloat16", lf, lc), f"{arch}: the loss limit "
+                  f"passes a planted fault ({fault}: {lf} against {lc})")
+            r[f"loss_rel_err_{fault}"] = abs(lf - lc) / abs(lc)
+        # planted faults: a zeroed dq or db on the card
+        fault = {"starcoder2-15b": ("dq", "flash_attention", 0),
+                 "mamba2-780m": ("db", "ssm_scan", 3)}.get(arch)
+        if fault:
+            name, fn, arg = fault
+            real = getattr(kops, fn)
+
+            def faulty(*args, **kw):
+                args = list(args)
+                args[arg] = args[arg].detach()
+                return real(*args, **kw)
+
+            setattr(kops, fn, faulty)
+            try:
+                for t, m in models.items():
+                    off, _ = _grads_off(on(dev, card_copy(m))[1],
+                                        runs[t][0], float32=t == "float32")
+                    check(bool(off), f"{arch} {t}: the gradient check "
+                          f"passes a zeroed {name}")
+                    r[t][f"zeroed_{name}_leaves_off"] = off
+            finally:
+                setattr(kops, fn, real)
+        out[arch] = r
+        del bf16, models, runs
+    _phase(16, "train card vs CPU", "; ".join(
+        f"{a} (reduced{', layer by layer' if a.startswith('jamba') else ''})"
+        f": loss rel err bf16 {r['bfloat16']['loss_rel_err']:.3g}, float32 "
+        f"{r['float32']['loss_rel_err']:.3g} (planted: first layer in fp8 "
+        f"{r['loss_rel_err_fp8_first_layer']:.3g}, last layer dropped "
+        f"{r['loss_rel_err_drop_last_layer']:.3g}); gradients need atol "
+        f"{r['bfloat16']['grad_atol_needed']:.3g} (bf16), "
+        f"{r['float32']['grad_atol_needed']:.3g} (float32); d_skip's bf16 "
+        f"gradient {r['d_skip_bf16_from_float32_cpu']:.3g} of its largest "
+        f"from the float32 one on the CPU"
+        + "".join(f"; zeroed {k.split('_')[1]} rejected in {t} ({len(v)} "
+                  f"leaves off: {', '.join(x.split()[0] for x in v)})"
+                  for t in ("bfloat16", "float32")
+                  for k, v in r[t].items() if k.startswith("zeroed_"))
+        for a, r in out.items()) + f" (limits: loss {LOSS_RTOL} rel; "
+        f"gradients per leaf {GRAD_RTOL} rel + {GRAD_ATOL} of the leaf's "
+        f"largest in bf16, {F32_TOL} + {F32_TOL} in float32, d_skip in "
+        f"float32 only)")
+    return out
+
+
+def _train_phases(torch, np, dev, record, profile):
+    """Phases 12-16, the LM training path and horner; returns the kernel
+    lines of flash_attention_bwd, ssm_scan_bwd and horner."""
+    import dataclasses as dc
+
+    from repro_torch.models.registry import get_config
+
+    record["lm_bwd_kernels"] = _lm_bwd_kernel_phase(torch, dev)
+    record["horner"] = _horner_phase(torch, dev)
+    ssm_cfg = get_config(TRAIN_SSM_ARCH)
+    check(ssm_cfg.n_layers == 48 and ssm_cfg.d_model == 1536,
+          f"{ssm_cfg.name}: {ssm_cfg.n_layers} layers, d_model "
+          f"{ssm_cfg.d_model}")
+    record["train"] = _train_phase(
+        torch, np, dev, 14, "train", ssm_cfg, TRAIN_SSM_BATCH,
+        TRAIN_SSM_STEPS, TRAIN_SSM_LR, "ssm_scan", "", profile=profile)
+    attn_cfg = dc.replace(get_config(TRAIN_ATTN_ARCH),
+                          n_layers=TRAIN_ATTN_LAYERS)
+    check(attn_cfg.d_model == 6144 and attn_cfg.d_ff == 24576,
+          f"{attn_cfg.name}: d_model {attn_cfg.d_model}")
+    record["train_attention"] = _train_phase(
+        torch, np, dev, 15, "train attention", attn_cfg, TRAIN_ATTN_BATCH,
+        TRAIN_ATTN_STEPS, TRAIN_ATTN_LR, "flash_attention",
+        f", cut from {get_config(TRAIN_ATTN_ARCH).n_layers}",
+        profile=profile)
+    record["train_card_vs_cpu"] = _train_card_vs_cpu_phase(torch, np, dev)
+    bwd = record["lm_bwd_kernels"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return [
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/models/layers.py:140",
+         "launches": record["train_attention"]["launches"][
+             "flash_attention_bwd"],
+         **{k: bwd["flash_attention_bwd"][k] for k in keys}},
+        {"name": "ssm_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+         "replaces": "src/repro/models/layers.py:417",
+         "launches": record["train"]["launches"]["ssm_scan_bwd"],
+         **{k: bwd["ssm_scan_bwd"][k] for k in keys}},
+        {"name": "horner", "route": "cuda",
+         "source": "src/repro_torch/csrc/horner.cu",
+         "replaces": "src/repro/kernels/horner.py:37",
+         "launches": record["horner"]["launches"],
+         **{k: record["horner"]["float32"][k] for k in keys}}]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON")
     ap.add_argument("--profile", action="store_true",
                     help="also trace, with torch.profiler, one DSE engine "
                          "micro-batch (resnet50_int8, 1,024 genomes), one "
-                         "(4, 512) prefill wave and one decode step: device "
-                         "busy share and the kernels that take the time")
+                         "(4, 512) prefill wave, one decode step and one "
+                         "step of each training phase: device busy share "
+                         "and the kernels that take the time")
     args = ap.parse_args(argv)
 
     import torch
@@ -790,6 +1398,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels = [dse_kernel] + _lm_phases(torch, np, dev, record, build_s,
                                         args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += _train_phases(torch, np, dev, record, args.profile)
 
     record["total_s"] = time.perf_counter() - t_start
     if args.out:

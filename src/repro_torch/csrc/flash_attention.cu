@@ -10,7 +10,8 @@
 // j <= i + (T - S); a hidden score is set to -1e30, not -inf, so a row
 // that sees no key averages every key, as the reference does.  m, l and
 // the accumulator are float32; the output is acc / max(l, 1e-30) in the
-// input type (float32 or bfloat16).
+// input type (float32 or bfloat16).  When asked (lse non-null) it also
+// writes the row log-sum-exp of the scaled scores, m + log(l), float32.
 //
 // Design (simple first): one block of 256 threads per (bh, 64-row query
 // tile).  The query tile is staged in shared memory once as float32; the
@@ -28,7 +29,7 @@
 //
 // What bounds it on an H100: at the serving path's shapes (B 4, H 32,
 // S = T = 512, D 128, bf16) the function needs 8.6e9 flops (8.7 us on the
-// tensor cores) and moves 33.6 MB (10 us at 3.35 TB/s), so the bound is
+// tensor cores) and moves 67.1 MB (20 us at 3.35 TB/s), so the bound is
 // the bytes.  This first version multiplies in float32 on the CUDA cores,
 // not on the tensor cores (no wgmma, no TMA), so it is bound by its own
 // fp32 FMA issue rate and by 113 KB of shared memory per block at D 128
@@ -85,8 +86,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
-                 int causal, float sm_scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int Tk, int causal,
+                 float sm_scale) {
   constexpr int kQS = D + 1;    // q row stride
   constexpr int kKS = kBK + 1;  // k^T and p row stride
   constexpr int kCols = D / 16;
@@ -208,12 +210,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + (bh * S + row) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) store(orow + tx + 16 * c, acc[i][c] * inv_l);
+    if (lse != nullptr && tx == 0)
+      lse[bh * S + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int S, int Tk, int causal, float sm_scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int BH, int S, int Tk, int causal, float sm_scale,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // above 48 KB a block's dynamic shared memory needs the opt-in (per
   // device, so it is set at every launch)
@@ -224,19 +229,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
   const dim3 grid(BH, (S + kBQ - 1) / kBQ);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tk, causal, sm_scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, causal,
+      sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int BH,
-             int S, int Tk, int D, int causal, float sm_scale,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int BH, int S, int Tk, int D, int causal, float sm_scale,
              cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, BH, S, Tk, causal, sm_scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, BH, S, Tk, causal, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, BH, S, Tk, causal, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, BH, S, Tk, causal, sm_scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, BH, S, Tk, causal, sm_scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, BH, S, Tk, causal, sm_scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, BH, S, Tk, causal, sm_scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, BH, S, Tk, causal, sm_scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -247,16 +253,18 @@ extern "C" {
 
 // q (BH, S, D), k and v (BH, T, D), o (BH, S, D): contiguous device
 // pointers of one type, bfloat16 when is_bf16 is non-zero, else float32.
-// D is 16, 32, 64 or 128.
+// D is 16, 32, 64 or 128.  lse, if not null, receives the (BH, S) float32
+// row log-sum-exp of the scaled scores.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int BH, int S, int T, int D, int causal,
-                           int is_bf16, float sm_scale, void* stream) {
+                           void* o, float* lse, int BH, int S, int T, int D,
+                           int causal, int is_bf16, float sm_scale,
+                           void* stream) {
   if (BH <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, BH, S, T, D, causal,
-                                           sm_scale, st)
-                 : dispatch<float>(q, k, v, o, BH, S, T, D, causal, sm_scale,
-                                   st);
+  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, BH, S, T, D,
+                                           causal, sm_scale, st)
+                 : dispatch<float>(q, k, v, o, lse, BH, S, T, D, causal,
+                                   sm_scale, st);
 }
 
 const char* flash_attention_error_string(int code) {

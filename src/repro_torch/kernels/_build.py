@@ -27,7 +27,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("dse_eval", "flash_attention", "ssm_scan")
+KERNELS = ("dse_eval", "flash_attention", "flash_attention_bwd", "ssm_scan",
+           "ssm_scan_bwd", "horner")
 
 
 def source(name: str) -> pathlib.Path:

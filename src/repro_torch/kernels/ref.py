@@ -3,7 +3,10 @@
 ``dse_eval_ref`` and ``flash_attention_ref`` port the functions of the
 same names in ``repro/kernels/ref.py`` line for line; ``ssm_scan_ref``
 delegates, as the reference does, to the model's chunked SSD scan
-(``models.layers.ssd_scan_ref``).  They are the semantics of record the
+(``models.layers.ssd_scan_ref``).  ``horner_ref`` is the plain version
+of the reference's ``ops.horner`` (the Pallas kernel's entry point):
+float32 inside, x's dtype out.  The backward kernels' plain versions are
+autograd through these functions.  They are the semantics of record the
 CUDA kernels are held to.  The CPU path of ``kernels.ops`` and the tests
 use them; on the card, ``chip_smoke.py`` compares the kernels with them.
 """
@@ -16,7 +19,7 @@ import torch
 from ..numerics import einsum
 
 __all__ = ["dse_eval_ref", "flash_attention_ref", "ssm_scan_ref",
-           "OP_FIELDS", "TILE_FIELDS"]
+           "horner_ref", "OP_FIELDS", "TILE_FIELDS"]
 
 # packed layouts shared with the kernel ---------------------------------------
 # op row: [op_cls, macs, elems, bytes_total, seq_len, sfu_kind, sfu_n]
@@ -104,3 +107,16 @@ def ssm_scan_ref(x, dt, a_log, b, c, chunk: int = 64) -> torch.Tensor:
     truth)."""
     from ..models.layers import ssd_scan_ref
     return ssd_scan_ref(x, dt, a_log, b, c, chunk=chunk)
+
+
+def horner_ref(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """sum_i coeffs[i] x^i with Horner's rule, coeffs lowest degree first.
+    Each step multiplies and then adds, each rounded to float32 (no fused
+    multiply-add), and the result is cast to x's dtype, as the Pallas
+    kernel's output is.  (The reference's jnp oracle of the same name
+    returns float32 for a bfloat16 x: its float32 coefficient promotes.)"""
+    xf, cf = x.float(), coeffs.float()
+    y = torch.zeros_like(xf) + cf[-1]
+    for i in range(cf.shape[0] - 2, -1, -1):
+        y = y * xf + cf[i]
+    return y.to(x.dtype)

@@ -9,19 +9,24 @@ dtype's name, read as ``uint16`` bits and viewed as ``torch.bfloat16``.
 
 Layer ``i = r * len(pattern) + j`` of the port takes row ``r`` of every
 leaf of ``tree["blocks"][j]`` (the reference stacks the repeats of each
-pattern position on a leading axis).
+pattern position on a leading axis).  ``opt_state_from_jax`` applies the
+same mapping to the reference's AdamW state, whose ``mu`` tree holds, at
+each parameter's path, ``{"m", "v"}`` (float32) or their int8 form
+``{"q", "scale"}``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
+from ..optim.adamw import AdamWConfig, init_opt_state
 from .config import ModelConfig
 from .model import Model
 
-__all__ = ["to_torch", "params_from_jax", "layer_index"]
+__all__ = ["to_torch", "params_from_jax", "opt_state_from_jax",
+           "layer_index"]
 
 
 def to_torch(a) -> torch.Tensor:
@@ -38,12 +43,49 @@ def layer_index(cfg: ModelConfig, j: int, r: int) -> int:
     return r * len(cfg.pattern()) + j
 
 
-def _leaves(tree: Any, prefix: str) -> Iterator[Tuple[str, Any]]:
-    if isinstance(tree, dict):
+def _leaves(tree: Any, prefix: str,
+            is_leaf: Callable[[Any], bool]) -> Iterator[Tuple[str, Any]]:
+    if isinstance(tree, dict) and not is_leaf(tree):
         for k, v in tree.items():
-            yield from _leaves(v, f"{prefix}.{k}" if prefix else k)
+            yield from _leaves(v, f"{prefix}.{k}" if prefix else k, is_leaf)
     else:
         yield prefix, tree
+
+
+def _row(leaf: Any, r: int) -> Any:
+    if isinstance(leaf, dict):
+        return {k: _row(v, r) for k, v in leaf.items()}
+    return np.asarray(leaf)[r]
+
+
+def _by_port_name(cfg: ModelConfig, tree: Dict[str, Any], names,
+                  is_leaf: Callable[[Any], bool]) -> Dict[str, Any]:
+    """The reference tree's leaves keyed by the port's parameter names;
+    raises unless they are exactly ``names``."""
+    src: Dict[str, Any] = {}
+    for key in ("embed", "final_norm", "lm_head"):
+        if key in tree:
+            src.update(_leaves(tree[key], key, is_leaf))
+    for j, block in enumerate(tree["blocks"]):
+        for name, leaf in _leaves(block, "", is_leaf):
+            for r in range(cfg.n_repeats):
+                src[f"layers.{layer_index(cfg, j, r)}.{name}"] = \
+                    _row(leaf, r)
+    extra = set(tree) - {"embed", "final_norm", "lm_head", "blocks"}
+    if extra or set(src) != set(names):
+        raise ValueError(
+            f"param tree and model differ: tree only "
+            f"{sorted(set(src) - set(names)) + sorted(extra)}, model only "
+            f"{sorted(set(names) - set(src))}")
+    return src
+
+
+def _copy(name: str, dst: torch.Tensor, leaf) -> None:
+    t = to_torch(leaf)
+    if t.shape != dst.shape or t.dtype != dst.dtype:
+        raise ValueError(f"{name}: tree has {tuple(t.shape)} {t.dtype}, "
+                         f"port {tuple(dst.shape)} {dst.dtype}")
+    dst.copy_(t)
 
 
 def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], device=None
@@ -52,28 +94,35 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], device=None
     reference's param tree.  Every leaf must find a parameter of the same
     shape and dtype, and every parameter a leaf."""
     model = Model(cfg, device=device, generator=None)
-    src: Dict[str, Any] = {}
-    for key in ("embed", "final_norm", "lm_head"):
-        if key in tree:
-            src.update(_leaves(tree[key], key))
-    for j, block in enumerate(tree["blocks"]):
-        for name, leaf in _leaves(block, ""):
-            leaf = np.asarray(leaf)
-            for r in range(cfg.n_repeats):
-                src[f"layers.{layer_index(cfg, j, r)}.{name}"] = leaf[r]
-    extra = set(tree) - {"embed", "final_norm", "lm_head", "blocks"}
     params = dict(model.named_parameters())
-    if extra or set(src) != set(params):
-        raise ValueError(
-            f"param tree and model differ: tree only "
-            f"{sorted(set(src) - set(params)) + sorted(extra)}, model only "
-            f"{sorted(set(params) - set(src))}")
+    src = _by_port_name(cfg, tree, params,
+                        lambda t: not isinstance(t, dict))
     with torch.no_grad():
         for name, p in params.items():
-            t = to_torch(src[name])
-            if t.shape != p.shape or t.dtype != p.dtype:
-                raise ValueError(f"{name}: tree has {tuple(t.shape)} "
-                                 f"{t.dtype}, model {tuple(p.shape)} "
-                                 f"{p.dtype}")
-            p.copy_(t)
+            _copy(name, p, src[name])
     return model
+
+
+def opt_state_from_jax(cfg: ModelConfig, opt: Dict[str, Any], model: Model
+                       ) -> Dict[str, Any]:
+    """The port's AdamW state (``optim.adamw``) for ``model`` from the
+    reference's ``init_opt_state`` / ``apply_updates`` state, bit for
+    bit, on the model's device."""
+    params = dict(model.named_parameters())
+    src = _by_port_name(cfg, opt["mu"], params,
+                        lambda t: isinstance(t, dict) and set(t) == {"m",
+                                                                      "v"})
+    int8 = isinstance(next(iter(src.values()))["m"], dict)
+    state = init_opt_state(model, AdamWConfig(
+        moments_dtype="int8" if int8 else "fp32"))
+    with torch.no_grad():
+        for name, mu in state["mu"].items():
+            for mom in ("m", "v"):
+                if int8:
+                    for part in ("q", "scale"):
+                        _copy(f"{name}.{mom}.{part}", mu[mom][part],
+                              src[name][mom][part])
+                else:
+                    _copy(f"{name}.{mom}", mu[mom], src[name][mom])
+        state["step"].copy_(to_torch(np.asarray(opt["step"])))
+    return state

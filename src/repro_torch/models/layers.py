@@ -1,5 +1,5 @@
 """Building blocks of the LM substrate on PyTorch: the parts of
-``repro/models/layers.py`` on the serving path.
+``repro/models/layers.py`` on the serving and training paths.
 
 Each JAX ``init_*`` function becomes an ``nn.Module`` constructor with
 the same shapes, scales and dtypes (weights in bf16, the Mamba2 decay and
@@ -11,8 +11,10 @@ dense weights keep the JAX layout ``(d_in, d_out)``: ``y = x @ w``.
 
 Two hand-written kernels sit on this path (``kernels.ops``): the causal
 self-attention of a whole prompt goes through ``flash_attention`` and the
-Mamba2 chunked scan of a whole prompt through ``ssm_scan``.  The one-token
-decode steps stay plain PyTorch, as in the reference.  Caches are dicts of
+Mamba2 chunked scan of a whole prompt through ``ssm_scan``; under
+autograd both go through their backward kernels too.  The one-token
+decode steps stay plain PyTorch, as in the reference.  Parameters are
+trainable; the serving steps run under ``torch.inference_mode()``.  Caches are dicts of
 tensors that the layers update in place (the reference returns new ones).
 """
 from __future__ import annotations
@@ -37,7 +39,7 @@ Cache = Dict[str, torch.Tensor]
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 def _normal(shape, scale: float, device, generator) -> nn.Parameter:

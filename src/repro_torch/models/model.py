@@ -1,5 +1,5 @@
 """Model assembly on PyTorch: the parts of ``repro/models/model.py`` on
-the serving path.
+the serving and training paths.
 
 The reference scans over ``n_repeats`` periods of the config's layer
 pattern with stacked params; the port unrolls them into one
@@ -10,6 +10,7 @@ pattern with stacked params; the port unrolls them into one
 Entry points:
   Model(cfg, device=..., generator=...)   -> the weights (bf16)
   forward(model, tokens)                  -> logits (prefill, every position)
+  loss_fn(model, batch, remat=True)       -> next-token cross-entropy
   init_cache(cfg, batch, max_len, device) -> per-layer decode caches
   decode_step(model, tokens, pos, caches) -> (logits, caches)  [serve_step]
 
@@ -20,17 +21,18 @@ prefix) raise ``NotImplementedError``.
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
 from .config import ModelConfig
 
-__all__ = ["Block", "Model", "check_supported", "forward", "init_cache",
-           "decode_step"]
+__all__ = ["Block", "Model", "check_supported", "forward", "loss_fn",
+           "init_cache", "decode_step"]
 
 LayerCache = Optional[L.Cache]
 
@@ -110,8 +112,21 @@ class Model(nn.Module):
         return self.embed.T if self.lm_head is None else self.lm_head.w
 
 
+def _remat_layer(layer: Block, x: torch.Tensor, positions: torch.Tensor
+                 ) -> torch.Tensor:
+    return layer(x, positions, None)[0]
+
+
 def _run_blocks(model: Model, x: torch.Tensor, positions: torch.Tensor,
-                caches: Optional[List[LayerCache]]):
+                caches: Optional[List[LayerCache]], remat: bool = False):
+    """``remat`` (training, no caches) rematerialises each block in the
+    backward, as ``jax.checkpoint`` around each layer does in the
+    reference: the block's forward, its kernels included, runs again."""
+    if remat and caches is None:
+        for layer in model.layers:
+            x = checkpoint(_remat_layer, layer, x, positions,
+                           use_reentrant=False)
+        return x, None
     new = []
     for i, layer in enumerate(model.layers):
         x, c = layer(x, positions, None if caches is None else caches[i])
@@ -127,19 +142,67 @@ def _mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(model: Model, tokens: torch.Tensor) -> torch.Tensor:
-    return model.embed[tokens.long()].to(L.DTYPE)
+    """The table's rows, in its dtype (bf16; float32 for a model made
+    float32 with ``.float()``, which then runs in float32 throughout)."""
+    return model.embed[tokens.long()]
 
 
-def forward(model: Model, tokens: torch.Tensor) -> torch.Tensor:
-    """Prefill forward over every position.  tokens (B, S) -> logits
-    (B, S, vocab_padded), pad columns at -1e30."""
+def _backbone(model: Model, tokens: torch.Tensor, remat: bool = False
+              ) -> torch.Tensor:
     B, S = tokens.shape
     x = _embed(model, tokens)
     positions = torch.arange(S, device=x.device).expand(B, S)
-    x, _ = _run_blocks(model, x, positions, None)
-    x = L.norm(model.final_norm.scale, x, model.cfg.norm)
+    x, _ = _run_blocks(model, x, positions, None, remat=remat)
+    return L.norm(model.final_norm.scale, x, model.cfg.norm)
+
+
+def forward(model: Model, tokens: torch.Tensor, remat: bool = False
+            ) -> torch.Tensor:
+    """Training / prefill forward over every position.  tokens (B, S) ->
+    logits (B, S, vocab_padded), pad columns at -1e30."""
+    x = _backbone(model, tokens, remat)
     return _mask_pad_logits(model.cfg,
                             L.einsum("bsd,dv->bsv", x, model.head()))
+
+
+_CE_CHUNK = 4096  # token rows per chunked-CE step
+
+
+def _ce_block(cfg: ModelConfig, xi: torch.Tensor, head: torch.Tensor,
+              li: torch.Tensor) -> torch.Tensor:
+    logits = _mask_pad_logits(cfg, L.einsum("nd,dv->nv", xi, head).float())
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, li[:, None].long())[:, 0]
+    return torch.sum(logz - gold)
+
+
+def _chunked_ce(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy without materialising (B, S, V) logits: the token rows
+    go in chunks of 4,096, each rematerialised in the backward (the
+    reference's ``jax.checkpoint`` on its scan body), so the live logits
+    are (chunk, V) float32.  The logits are the bf16 product widened to
+    float32, pad vocab columns at -1e30.  Returns the mean over rows."""
+    B, S, D = x.shape
+    rows = B * S
+    xf = x.reshape(rows, D)
+    lf = labels.reshape(rows)
+    chunk = min(_CE_CHUNK, rows)
+    if rows % chunk:
+        chunk = rows  # fall back for tiny odd shapes
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(0, rows, chunk):
+        acc = acc + checkpoint(_ce_block, cfg, xf[s:s + chunk], head,
+                               lf[s:s + chunk], use_reentrant=False)
+    return acc / rows
+
+
+def loss_fn(model: Model, batch: Dict[str, torch.Tensor], remat: bool = True
+            ) -> torch.Tensor:
+    """Next-token cross-entropy (float32 scalar).  batch: tokens (B, S),
+    labels (B, S).  (Frontend and encoder contexts are not ported.)"""
+    x = _backbone(model, batch["tokens"], remat=remat)
+    return _chunked_ce(model.cfg, x, model.head(), batch["labels"])
 
 
 def _init_layer_cache(cfg: ModelConfig, mixer: str, B: int, T: int,

@@ -52,8 +52,10 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         self.queue.append(req)
 
+    @torch.inference_mode()
     def run(self) -> Dict[int, List[int]]:
-        """Serve everything in the queue; returns rid -> generated tokens."""
+        """Serve everything in the queue; returns rid -> generated tokens.
+        Runs under ``torch.inference_mode()``."""
         dev = self.device
         results: Dict[int, List[int]] = {}
         slots: List[Optional[Request]] = [None] * self.max_batch

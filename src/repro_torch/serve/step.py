@@ -3,7 +3,8 @@
 ``prefill_step``: run the prompt through the stack writing fresh caches,
 return last-token logits + caches.  ``decode_step`` (serve_step): one new
 token against the caches.  The steps take the model where the reference
-takes its param tree.
+takes its param tree, and run under ``torch.inference_mode()`` (the
+model's parameters are trainable; serving records no autograd graph).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ __all__ = ["make_prefill_step", "make_decode_step", "greedy_sample"]
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
+    @torch.inference_mode()
     def prefill_step(model: Model, tokens: torch.Tensor):
         B, S = tokens.shape
         caches = init_cache(cfg, B, max_len, model.device)
@@ -32,6 +34,7 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
 
 
 def make_decode_step(cfg: ModelConfig):
+    @torch.inference_mode()
     def decode_step(model: Model, tokens: torch.Tensor, pos: torch.Tensor,
                     caches):
         return _decode(model, tokens, pos, caches)

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the hand-written CUDA kernels (``dse_eval``,
-``flash_attention``, ``ssm_scan``) against their plain versions, and the
+``flash_attention`` and its backward, ``ssm_scan`` and its backward,
+``horner``) against their plain versions, a refused launch, and the
 batched engine on ``cuda`` against the same engine on the CPU.  Every test
 here needs an NVIDIA GPU (and nvcc); elsewhere each one skips with its
 reason.  Torch only, no JAX, so the
@@ -150,3 +151,107 @@ def test_cuda_ssm_scan_matches_plain_version(cuda, shape, dtype):
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
+
+
+def _rel_max(got, want):
+    """Max abs error over the largest magnitude of ``want``."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 2, 128, 128, 64), (2, 3, 70, 70, 32),
+                                   (1, 2, 64, 130, 16), (1, 2, 130, 64, 16),
+                                   (1, 4, 256, 256, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_bwd_matches_plain_version(cuda, shape, dtype,
+                                                        causal):
+    """The backward kernel (through the autograd entry point) against
+    autograd of the plain version: within 1e-5 of each gradient's largest
+    magnitude in float32, 2e-2 in bfloat16 (the plain version rounds its
+    bf16 scores and probabilities; the kernel works in float32).  T < S
+    leaves rows that see no key (uniform weights, no gradient to q, k)."""
+    B, H, S, T, D = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q = torch.randn((B, H, S, D), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((B, H, T, D), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn((B, H, S, D), generator=g, device=cuda).to(dtype)
+    before = dict(K.launch_counts)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = K.flash_attention(*qkv, causal=causal)
+    got = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    assert K.launch_counts["flash_attention"] == before["flash_attention"] + 1
+    assert K.launch_counts["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(P.flash_attention_ref(*ref, causal), ref, do)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype
+        assert _rel_max(a, w) <= tol, (name, _rel_max(a, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 64, 2, 16, 8, 32), (2, 128, 3, 32, 16, 64),
+                                   (1, 256, 4, 64, 128, 64),
+                                   (2, 512, 8, 64, 16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssm_scan_bwd_matches_plain_version(cuda, shape, dtype):
+    """The backward kernel (through the autograd entry point) against
+    autograd of the plain version: within 1e-4 of each gradient's largest
+    magnitude in float32 (tests/test_kernels.py's forward tolerance),
+    5e-2 in bfloat16."""
+    B, S, H, Pd, N, L = shape
+    g = torch.Generator(device=cuda).manual_seed(S + H + N)
+    x = torch.randn((B, S, H, Pd), generator=g, device=cuda).to(dtype)
+    dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=g, device=cuda)
+    al = 2 * torch.rand((H,), generator=g, device=cuda) - 1
+    b, c = (torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    dy = torch.randn((B, S, H, Pd), generator=g, device=cuda).to(dtype)
+    before = dict(K.launch_counts)
+    ins = [t.clone().requires_grad_() for t in (x, dt, al, b, c)]
+    got = torch.autograd.grad(K.ssm_scan(*ins, chunk=L), ins, dy)
+    torch.cuda.synchronize()
+    assert K.launch_counts["ssm_scan"] == before["ssm_scan"] + 1
+    assert K.launch_counts["ssm_scan_bwd"] == before["ssm_scan_bwd"] + 1
+    ref = [t.clone().requires_grad_() for t in (x, dt, al, b, c)]
+    want = torch.autograd.grad(P.ssm_scan_ref(*ref, chunk=L), ref, dy)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, w in zip(("x", "dt", "a_log", "b", "c"), got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert _rel_max(a, w) <= tol, (name, _rel_max(a, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 1000, 8192, 1 << 20])
+@pytest.mark.parametrize("degree", [0, 1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_horner_bitwise_plain_version(cuda, n, degree, dtype):
+    """No fused multiply-add on either side: bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(n + degree)
+    x = torch.randn((n,), generator=g, device=cuda).to(dtype)
+    cf = torch.randn((degree + 1,), generator=g, device=cuda)
+    before = K.launch_counts["horner"]
+    got = K.horner(x, cf)
+    torch.cuda.synchronize()
+    assert K.launch_counts["horner"] == before + 1
+    want = P.horner_ref(x, cf)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_refused_launch_raises(cuda):
+    """An unsupported head dim and too many coefficients raise on the card;
+    nothing falls back to the plain version."""
+    before = dict(K.launch_counts)
+    q = torch.zeros((1, 2, 64, 24), device=cuda)
+    with pytest.raises(ValueError):
+        K.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        K.horner(torch.zeros((8,), device=cuda),
+                 torch.zeros((20000,), device=cuda))
+    assert K.launch_counts == before

@@ -45,5 +45,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.models.layers", "repro_torch.models.model",
                 "repro_torch.models.convert", "repro_torch.launch.tuning",
                 "repro_torch.serve.step", "repro_torch.serve.engine",
-                "repro_torch.configs.jamba_v0_1_52b"):
+                "repro_torch.configs.jamba_v0_1_52b",
+                "repro_torch.kernels.horner", "repro_torch.optim.adamw",
+                "repro_torch.optim.schedule", "repro_torch.optim.compression",
+                "repro_torch.data.pipeline", "repro_torch.train.step",
+                "repro_torch.train.loop", "repro_torch.train.fault",
+                "repro_torch.train.straggler", "repro_torch.checkpoint.ckpt",
+                "repro_torch.launch.train"):
         assert mod in out["modules"], mod
