@@ -31,12 +31,18 @@ script exits non-zero without printing a result):
                 rel 1e-9), and the port on ``hetero_bls()`` against the
                 golden traces in tests/golden (rtol 1e-6);
 8. build     -- loads flash_attention and ssm_scan (built in phase 2) and
-                prints their build seconds;
+                prints their build seconds, the number of ``HGMMA``
+                (wgmma) instructions in each flash library
+                (``cuobjdump --dump-sass``; fails if either has none) and
+                the registers and spills ``ptxas -v`` gave each
+                tensor-core flash kernel;
 9. lm kernels -- both at the first prefill wave's shapes (batch 4, 512
                 tokens, bf16) against their plain versions (flash 2e-2,
                 ssm_scan 5e-2), timed with CUDA events beside the plain
                 version, the bound and, for flash,
-                ``scaled_dot_product_attention`` (a yardstick only);
+                ``scaled_dot_product_attention`` (a yardstick only); and
+                flash_attention again at phase 15's training shape
+                (batch 4, 48 heads, 2,048 tokens, causal, bf16);
 10. serve    -- the LM main path: Jamba-v0.1 at full width, one period of
                 8 layers, random weights from ``torch.Generator`` seed 0,
                 ``ServeEngine(max_batch=4, max_len=1024)`` serving 8
@@ -90,6 +96,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -571,6 +578,13 @@ def _lm_kernel_phase(torch, dev):
             for _ in range(2))
     flash = (lambda: kops.flash_attention(q, k, v, causal=True),
              lambda: kref.flash_attention_ref(q, k, v, causal=True))
+    # phase 15's attention (starcoder2-15b at batch 4 x 2,048)
+    tcfg = get_config(TRAIN_ATTN_ARCH)
+    Bt, Ht, St, Dt = TRAIN_ATTN_BATCH, tcfg.n_heads, TRAIN_SEQ, tcfg.head_dim
+    qt, kt, vt = (torch.randn((Bt, Ht, St, Dt), generator=g,
+                              device=dev).to(bf16) for _ in range(3))
+    flash_train = (lambda: kops.flash_attention(qt, kt, vt, causal=True),
+                   lambda: kref.flash_attention_ref(qt, kt, vt, causal=True))
     ssm = (lambda: kops.ssm_scan(x, dt, a_log, b, c, chunk=L),
            lambda: kref.ssm_scan_ref(x, dt, a_log, b, c, chunk=L))
     cases = {
@@ -580,7 +594,15 @@ def _lm_kernel_phase(torch, dev):
             run=flash, tol=LM_TOL, ops=4 * D * B * H * S * (S + 1) // 2,
             bytes=4 * q.numel() * q.element_size(),
             library=lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True)),
+                q, k, v, is_causal=True),
+            shape=dict(B=B, H=H, S=S, T=S, D=D, causal=True)),
+        "flash_attention@train": dict(
+            run=flash_train, tol=LM_TOL,
+            ops=4 * Dt * Bt * Ht * St * (St + 1) // 2,
+            bytes=4 * qt.numel() * qt.element_size(),
+            library=lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True),
+            shape=dict(B=Bt, H=Ht, S=St, T=St, D=Dt, causal=True)),
         # 2 L (L N + L P + 2 N P) flops per (batch, head, chunk); x, dt,
         # a_log, b, c read and y written once
         "ssm_scan": dict(
@@ -588,7 +610,7 @@ def _lm_kernel_phase(torch, dev):
             ops=2 * L * (L * N + L * P + 2 * N * P) * B * Hs * (S // L),
             bytes=2 * x.numel() * x.element_size() + dt.numel() * 4
             + a_log.numel() * 4 + 2 * b.numel() * b.element_size(),
-            library=None)}
+            library=None, shape=dict(B=B, S=S, H=Hs, P=P, N=N, chunk=L))}
     out = {}
     for name, cs in cases.items():
         kernel, plain = cs["run"]
@@ -602,11 +624,13 @@ def _lm_kernel_phase(torch, dev):
             else _time_ms(torch, cs["library"], 20),
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "ops": cs["ops"], "bytes": cs["bytes"]}
+            "ops": cs["ops"], "bytes": cs["bytes"], "shape": cs["shape"]}
         lib = "none (no single PyTorch call computes it)" \
             if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms (scaled_dot_product_attention)"
-        _phase(9, "lm kernels", f"{name} at B {B}, S {S}, bf16: max abs err "
+        gc.collect()
+        torch.cuda.empty_cache()
+        _phase(9, "lm kernels", f"{name} at {cs['shape']}, bf16: max abs err "
                f"{err:.4g} (limit {cs['tol']} rel + abs); kernel "
                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
                f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {cs['ops']:.4g} "
@@ -781,18 +805,68 @@ def _card_vs_cpu_phase(torch, np, dev):
     return worst
 
 
+def _sass_count(path, opcode):
+    """Instructions of ``opcode`` in the SASS of a built library."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return sum(re.search(rf"\b{opcode}\b", line) is not None
+               for line in sass.splitlines())
+
+
+def _ptxas_usage(log, pattern):
+    """Registers and spill bytes that ``ptxas -v`` reported for each
+    kernel whose mangled name matches ``pattern`` (its first group names
+    the instantiation)."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            hit = re.search(pattern, m.group(1))
+            name = hit.group(1) if hit else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage.setdefault(name, {}).update(
+                spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage.setdefault(name, {})["registers"] = int(m[1])
+    return usage
+
+
 def _lm_phases(torch, np, dev, record, build_s, profile):
     """Phases 8-11, the LM serving path; returns the kernel lines of
     flash_attention and ssm_scan."""
-    from repro_torch.kernels import flash_attention, ssm_scan
+    from repro_torch.kernels import _build, flash_attention, ssm_scan
 
     t0 = time.perf_counter()
     flash_attention._library()
+    flash_attention._bwd_library()
     ssm_scan._library()
+    load_s = time.perf_counter() - t0
+    hgmma = {n: _sass_count(_build.library_path(n), "HGMMA")
+             for n in ("flash_attention", "flash_attention_bwd")}
+    check(all(hgmma.values()), f"a flash library has no HGMMA: {hgmma}")
+    regs = {}
+    for n, kern in (("flash_attention", "flash_fwd_tc_kernel"),
+                    ("flash_attention_bwd", "flash_bwd_tc_kernel")):
+        regs.update(_ptxas_usage(_build.build_log(n),
+                                 rf"({kern}ILi\d+E)"))
+    record["flash_build"] = {"hgmma": hgmma, "ptxas": regs}
     _phase(8, "build", f"flash_attention built in "
-           f"{build_s['flash_attention']:.3f} s, ssm_scan in "
+           f"{build_s['flash_attention']:.3f} s, flash_attention_bwd in "
+           f"{build_s['flash_attention_bwd']:.3f} s, ssm_scan in "
            f"{build_s['ssm_scan']:.3f} s (with phase 2's, in parallel); "
-           f"loaded in {time.perf_counter() - t0:.3f} s")
+           f"loaded in {load_s:.3f} s; HGMMA instructions {hgmma}; "
+           f"ptxas -v of the tensor-core kernels {regs}")
     record["lm_kernels"] = _lm_kernel_phase(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -808,7 +882,7 @@ def _lm_phases(torch, np, dev, record, build_s, profile):
              "launches": record["serve"]["launches"][name],
              **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms")}}
-            for name, r in record["lm_kernels"].items()]
+            for name, r in record["lm_kernels"].items() if name in sites]
 
 
 def _grad_err(got, want, tol, what):

@@ -37,12 +37,12 @@ are not ported yet; ``simulator.batched.fifo_insert`` is the cache.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from ...device import F64
+from ...device import F64, resolve_device
 from ..arch import Dataflow, Engine, MAX_TILES, Sparsity
 from ..calibrate.asap7 import CalibrationTable
 from ..ir import OpClass, OpType, PRECISION_BYTES
@@ -314,13 +314,14 @@ class CostModel:
     ``op`` arguments are dicts of per-op values (``OP_COST_KEYS``).  Any
     field may be a host scalar, a numpy array or a float64 tensor, as
     long as they broadcast.  ``device`` places the lookup tables that
-    tensor indices gather from.
+    tensor indices gather from (``None``: the card, as
+    ``device.resolve_device`` resolves it).
     """
 
     def __init__(self, calib: CalibrationTable,
-                 device: torch.device = torch.device("cpu")):
+                 device: Optional[Union[str, torch.device]] = None):
         self.c = calib
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._np = {
             "e_mac": np.asarray(calib.e_mac_pj, np.float64),
             "eng_e": np.asarray(calib.engine_e_mult, np.float64),
@@ -897,6 +898,8 @@ def _cached_model(calib: CalibrationTable, device: str) -> CostModel:
 
 
 def cost_model(calib: CalibrationTable,
-               device: torch.device = torch.device("cpu")) -> CostModel:
-    """Cached CostModel factory, one per (calibration, device)."""
-    return _cached_model(calib, str(torch.device(device)))
+               device: Optional[Union[str, torch.device]] = None
+               ) -> CostModel:
+    """Cached CostModel factory, one per (calibration, device); ``None``
+    is the card (``device.resolve_device``)."""
+    return _cached_model(calib, str(resolve_device(device)))

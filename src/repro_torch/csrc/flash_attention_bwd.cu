@@ -12,43 +12,68 @@
 // Design (FlashAttention-2, arXiv:2307.08691): from q, k, v, the
 // forward's output o and row log-sum-exp, and dO it gives dq, dk, dv of
 // the function above.  A first kernel takes delta_i = sum_d dO_id o_id
-// per row (one warp per row).  The main kernel runs one block of 256
-// threads per (bh, 64-key tile): K and V of the tile are staged once in
-// the inputs' type (bf16 rows padded to D + 2 elements, an odd number of
-// 4-byte words, so that 16 rows read at one column fall in 16 banks;
-// float32 rows to D + 1) and dK, dV stay in registers while the block
-// walks the query tiles that can see a key of the tile.
-// For each it stages Q and dO the same way, recomputes P = exp(s - lse) and
-// dP = dO V^T (64 x 64, fp32 FMAs), forms dS = P (dP - delta), adds
-// P^T dO to dV and dS^T Q to dK, and adds dS K to a float32 dq buffer
-// with atomics (blocks of other key tiles add to the same rows); a last
-// kernel casts that buffer to bfloat16 where the inputs are bfloat16.
-// Hidden keys get no weight and no gradient, as the reference's
-// masked_fill gives them; a row that sees no key (T < S) weighs every key
-// by 1/T and passes no gradient to q or k.
+// per row (one warp per row).  The main kernel runs one block per (bh,
+// 64-key tile): K and V of the tile stay in shared memory and dK, dV in
+// registers while the block walks the query tiles that can see a key of
+// the tile.  For each it recomputes P = exp(s - lse) and dP = dO V^T,
+// forms dS = P (dP - delta), adds P^T dO to dV and dS^T Q to dK, and adds
+// dS K to a float32 dq buffer with atomics (blocks of other key tiles add
+// to the same rows); a last kernel casts that buffer to bfloat16 where
+// the inputs are bfloat16.  Hidden keys get no weight and no gradient, as
+// the reference's masked_fill gives them; a row that sees no key (T < S)
+// weighs every key by 1/T and passes no gradient to q or k.  Under
+// `causal` the query tiles that see no key of the block's tile are
+// skipped.  Two main kernels, chosen by the dtype at dispatch:
+//
+// bfloat16: the tensor cores (flash_bwd_tc_kernel, FlashAttention-3
+// style).  One warpgroup of 128 threads.  K and V arrive once by TMA; the
+// Q and dO tiles of 64 rows go through a 2-stage TMA ring (hopper_tc.cuh),
+// the lse and delta rows of a tile are staged beside them by the threads.
+// S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 from shared memory;
+// computing the transposes puts P^T and dS^T = P^T (dP^T - delta) in the
+// accumulator layout of a key-row product, so both are rounded to bf16 in
+// registers and are the A operands of dV += P^T dO and dK += dS^T Q, with
+// dO and Q the MN-major B operands.  dS^T is also written to shared
+// memory as bf16 (128-byte swizzle, by hand) and dQ = dS K is one more
+// wgmma with A = dS read transposed from there and B = K, MN-major; each
+// thread adds its dQ fragment to dq_acc with float2 atomics.  Registers
+// at D 128: 64 + 64 floats for dK and dV, 32 + 32 for S^T and dP^T, then
+// 64 for dQ; shared memory 104 KB (K, V, two Q and two dO tiles, dS), two
+// blocks per SM.
+//
+// float32: the CUDA cores (flash_bwd_kernel): 256 threads, the tiles
+// staged in float32 rows padded to D + 1, the five products as fp32 FMAs
+// (one block per SM, 166 KB at D 128).  TF32 could not meet float32's 1e-5.
 //
 // What bounds it on an H100: at the training path's shapes (starcoder2-15b,
 // B 4, H 48, S = T = 2048, D 128, bf16, causal) it needs 5 products of
 // 2 D flops per visible (query, key) pair, 5.2e11 flops (0.52 ms on the
 // tensor cores), and reads q, k, v, o, dO and writes dq, dk, dv (8 x
-// 101 MB, 0.24 ms at 3.35 TB/s), so the bound is the operations.  This
-// version runs its five products as fp32 FMAs on the CUDA cores, with two
-// blocks per SM in bf16 (98 KB of shared memory and at most 128 registers
-// a thread at D 128; one in float32, 166 KB), so it is bound by fp32
-// issue, far above the bound.
+// 101 MB, 0.24 ms at 3.35 TB/s), so the bound is the operations.  The
+// bf16 kernel waits for each product before the next, and its dq adds
+// (4 B for every D-column product term, 3.3 GB at that shape) are what
+// the L2 does slowest: without them it took about 2.3 of its 4.3 ms on
+// an H100, and TMA's bulk reduce-add of whole dQ tiles took as long as
+// the atomics.
 //
-// Arithmetic: float32 throughout, expf; the atomics add the dq
+// Arithmetic: float32 sums, exp2 of the scores in log2 units; in bf16, the
+// scores round to bf16 (as the forward's do, so that P matches its row
+// log-sum-exp), P to bf16 before P^T dO and dS before dS^T Q and dS K, as
+// tests/test_torch_flash_tc_numerics.py emulates; the atomics add the dq
 // contributions of the key tiles in an order that changes from run to
-// run.  Held against autograd of the plain version, whose bf16 scores
-// and probabilities round where the kernel's do not, within 1e-5 of each
-// gradient's largest magnitude in float32 and 2e-2 in bfloat16.
+// run.  Held against autograd of the plain version, whose bf16 scores and
+// probabilities round elsewhere, within 1e-5 of each gradient's largest
+// magnitude in float32 and 2e-2 in bfloat16.
 //
 // The launches use the caller's stream, allocate nothing and return
-// cudaGetLastError(); the Python wrapper raises if it is not cudaSuccess.
+// cudaGetLastError() (or a tensor map's failure); the Python wrapper
+// raises if it is not cudaSuccess.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper_tc.cuh"
 
 namespace {
 
@@ -59,10 +84,6 @@ constexpr int kThreads = 256;  // 16 x 16
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
 }
 
 // delta[r] = sum_d dout[r, d] o[r, d], one warp per row
@@ -81,10 +102,12 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = acc;
 }
 
-// row stride of a staged q, dO, k or v tile, in elements
+// row stride of a staged q, dO, k or v tile, in elements (float32 rows
+// padded to an odd number of words, so 16 rows read at one column fall
+// in 16 banks)
 template <typename T, int D>
 __host__ __device__ constexpr int tile_stride() {
-  return D + (sizeof(T) == 4 ? 1 : 2);
+  return D + 1;
 }
 
 template <typename T, int D>
@@ -96,11 +119,7 @@ constexpr size_t bwd_smem_bytes() {
 
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16_rn(0.f);
-}
 
-// at most 128 registers a thread, so that two blocks fit an SM's 64 K
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -276,8 +295,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t g = kbase + static_cast<size_t>(row) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      store(dk + g + tx + 16 * c, dk_acc[a][c] * sm_scale);
-      store(dv + g + tx + 16 * c, dv_acc[a][c]);
+      dk[g + tx + 16 * c] = dk_acc[a][c] * sm_scale;
+      dv[g + tx + 16 * c] = dv_acc[a][c];
     }
   }
 }
@@ -292,6 +311,288 @@ f32_to_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ ds
     dst[e] = __float2bfloat16_rn(src[e]);
 }
 
+// ---- bfloat16: wgmma on TMA-fed tiles ------------------------------------
+
+// shared memory of the tensor-core kernel: K, V, then Q and dO of stage 0,
+// Q and dO of stage 1, the dS^T tile (64 keys x 64 queries, bf16), the
+// lse and delta rows of both stages (2 x 2 x 64 floats), then three
+// mbarriers (K and V, stage 0, stage 1)
+template <int D>
+constexpr size_t tc_bwd_smem_bytes() {
+  return 6 * tc::Tile<D>::kBytes + tc::Tile<64>::kBytes + 4 * kBQ * 4 +
+         3 * 8 + 1024;  // + 1 KB to align
+}
+
+template <int D>
+__global__ void __launch_bounds__(tc::kWarpgroup, 2)
+flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    float* __restrict__ dq_acc,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int S, int Tk,
+                    int causal, float sm_scale, float scale_log2) {
+  using Tile = tc::Tile<D>;
+  using DsTile = tc::Tile<64>;
+  constexpr int kR = D / 2;  // dK, dV, dQ accumulator floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t k_s = tc::align1024(smem_raw);
+  const uint32_t v_s = k_s + Tile::kBytes;
+  auto q_s = [&](int st) { return k_s + (2 + 2 * st) * Tile::kBytes; };
+  auto do_s = [&](int st) { return k_s + (3 + 2 * st) * Tile::kBytes; };
+  const uint32_t ds_s = k_s + 6 * Tile::kBytes;
+  const uint32_t rows_s = ds_s + DsTile::kBytes;
+  // rows[128 st + r]: lse (log2 units) of row r of stage st's tile;
+  // rows[128 st + 64 + r]: its delta
+  float* rows =
+      reinterpret_cast<float*>(smem_raw + (rows_s - tc::smem_u32(smem_raw)));
+  const uint32_t bar_kv = rows_s + 4 * kBQ * 4;
+  auto bar_qdo = [&](int st) { return bar_kv + 8 * (1 + st); };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBK;
+  const int off = Tk - S;
+  const int nq = (S + kBQ - 1) / kBQ;
+  const float inv_t = 1.f / static_cast<float>(Tk);
+
+  // the first query tile at or after qt that sees a key of this tile or
+  // holds a row that sees no key
+  auto next_visible = [&](int qt) {
+    while (causal && qt < nq) {
+      const int q0 = qt * kBQ;
+      const int last = min(q0 + kBQ, S) - 1;
+      if (q0 + off < 0 || last + off >= k0) break;
+      ++qt;
+    }
+    return qt;
+  };
+  // this thread's lse (tid < 64) or delta value of row tid % 64 of tile qt
+  auto row_value = [&](int qt) {
+    const int q = qt * kBQ + (tid & (kBQ - 1));
+    if (q >= S) return 0.f;
+    const size_t g = static_cast<size_t>(bh) * S + q;
+    return tid < kBQ ? lse[g] * tc::kLog2e : delta[g];
+  };
+
+  int qt = next_visible(0);
+  int ahead = qt < nq ? next_visible(qt + 1) : nq;
+  if (tid == 0) {
+    tc::mbar_init(bar_kv, 1);
+    tc::mbar_init(bar_qdo(0), 1);
+    tc::mbar_init(bar_qdo(1), 1);
+    tc::fence_barrier_init();
+  }
+  if (qt < nq) rows[tid] = row_value(qt);
+  __syncthreads();
+  if (tid == 0) {
+    tc::mbar_expect_tx(bar_kv, 2 * Tile::kBytes);
+    Tile::load(k_s, &tm_k, bar_kv, k0, bh);
+    Tile::load(v_s, &tm_v, bar_kv, k0, bh);
+    const int first[2] = {qt, ahead};
+    for (int st = 0; st < 2; ++st) {
+      if (first[st] >= nq) continue;
+      tc::mbar_expect_tx(bar_qdo(st), 2 * Tile::kBytes);
+      Tile::load(q_s(st), &tm_q, bar_qdo(st), first[st] * kBQ, bh);
+      Tile::load(do_s(st), &tm_do, bar_qdo(st), first[st] * kBQ, bh);
+    }
+  }
+
+  // this thread's key rows (r0, r0 + 8) and first column of each
+  // 8-column block of a fragment (hopper_tc.cuh)
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float dk_acc[kR], dv_acc[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  tc::mbar_wait(bar_kv, 0);
+  for (int n = 0; qt < nq; ++n) {
+    const int st = n & 1;
+    const int q0 = qt * kBQ;
+    const int after = ahead < nq ? next_visible(ahead + 1) : nq;
+    const float ahead_row = ahead < nq ? row_value(ahead) : 0.f;
+    tc::mbar_wait(bar_qdo(st), (n >> 1) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T: keys in rows, queries in columns
+    float s[32], dp[32];
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::Wgmma<64>::ss<0, 0>(s, Tile::kmajor(k_s, kk),
+                              Tile::kmajor(q_s(st), kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::Wgmma<64>::ss<0, 0>(dp, Tile::kmajor(v_s, kk),
+                              Tile::kmajor(do_s(st), kk), kk > 0);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::fence_operand(s);
+    tc::fence_operand(dp);
+
+    // P^T into s, dS^T into dp
+    const float* lse_r = rows + 128 * st;
+    const float* del_r = lse_r + kBQ;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * i + e;
+          const int key = k0 + r0 + 8 * i;
+          const int qi = 8 * j + c0 + e;
+          const int q = q0 + qi;
+          float p = 0.f, ds = 0.f;
+          if (q < S && key < Tk) {
+            if (causal && q + off < 0) {
+              p = inv_t;  // the row sees no key: every key weighs 1 / T
+            } else if (!causal || key <= q + off) {
+              p = exp2f(tc::round_bf16(s[x]) * scale_log2 - lse_r[qi]);
+              ds = p * (dp[x] - del_r[qi]);
+            }
+          }
+          s[x] = p;
+          dp[x] = ds;
+        }
+
+    // bf16 A fragments of P^T and dS^T for the 4 k-steps over the queries
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        pa[kk][x] = tc::pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+        da[kk][x] = tc::pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+      }
+    // dS^T to shared memory in the 128-byte swizzle: key row r, query
+    // column c at byte r 128 + ((c / 8) ^ (r % 8)) 16 + (c % 8) 2
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int r = r0 + 8 * (x & 1);
+        const int jc = 2 * kk + (x >> 1);
+        tc::st_shared_b32(ds_s + r * 128 + ((jc ^ (r & 7)) << 4) + 2 * c0,
+                          da[kk][x]);
+      }
+    tc::fence_proxy_async();
+
+    // dV += P^T dO, dK += dS^T Q
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::Wgmma<D>::template rs<1>(dv_acc, pa[kk],
+                                   Tile::mnmajor(do_s(st), kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::Wgmma<D>::template rs<1>(dk_acc, da[kk],
+                                   Tile::mnmajor(q_s(st), kk), 1);
+    tc::wg_commit();
+    if (ahead < nq) rows[128 * (st ^ 1) + tid] = ahead_row;
+    tc::wg_wait<0>();
+    tc::fence_operand(dv_acc);
+    tc::fence_operand(dk_acc);
+    __syncthreads();  // dS^T is whole in shared memory
+
+    // dQ = dS K: A = dS, read transposed from the dS^T tile
+    float dq[kR];
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::Wgmma<D>::template ss<1, 1>(dq, DsTile::mnmajor(ds_s, kk),
+                                      Tile::mnmajor(k_s, kk), kk > 0);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::fence_operand(dq);
+    __syncthreads();  // every thread is done with stage st and dS^T
+    if (tid == 0 && after < nq) {
+      tc::mbar_expect_tx(bar_qdo(st), 2 * Tile::kBytes);
+      Tile::load(q_s(st), &tm_q, bar_qdo(st), after * kBQ, bh);
+      Tile::load(do_s(st), &tm_do, bar_qdo(st), after * kBQ, bh);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = q0 + r0 + 8 * i;
+      if (q >= S) continue;
+      float* dst = dq_acc + (static_cast<size_t>(bh) * S + q) * D + c0;
+#pragma unroll
+      for (int j = 0; j < kR / 4; ++j)
+        atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
+                  make_float2(dq[4 * j + 2 * i] * sm_scale,
+                              dq[4 * j + 2 * i + 1] * sm_scale));
+    }
+    qt = ahead;
+    ahead = after;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + r0 + 8 * i;
+    if (key >= Tk) continue;
+    const size_t g = (static_cast<size_t>(bh) * Tk + key) * D + c0;
+#pragma unroll
+    for (int j = 0; j < kR / 4; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + g + 8 * j) =
+          __floats2bfloat162_rn(dk_acc[4 * j + 2 * i] * sm_scale,
+                                dk_acc[4 * j + 2 * i + 1] * sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + g + 8 * j) =
+          __floats2bfloat162_rn(dv_acc[4 * j + 2 * i],
+                                dv_acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// the main kernel for bfloat16: the tensor cores
+template <int D>
+cudaError_t launch_main(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                        const __nv_bfloat16* v, const float* lse,
+                        const float* delta, const __nv_bfloat16* dout,
+                        float* dq_acc, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                        int BH, int S, int Tk, int causal, float sm_scale,
+                        cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t e = tc::make_map(&tm_q, q, BH, S, D);
+  if (e == cudaSuccess) e = tc::make_map(&tm_k, k, BH, Tk, D);
+  if (e == cudaSuccess) e = tc::make_map(&tm_v, v, BH, Tk, D);
+  if (e == cudaSuccess) e = tc::make_map(&tm_do, dout, BH, S, D);
+  if (e != cudaSuccess) return e;
+  constexpr size_t smem = tc_bwd_smem_bytes<D>();
+  e = cudaFuncSetAttribute(flash_bwd_tc_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH, (Tk + kBK - 1) / kBK);
+  flash_bwd_tc_kernel<D><<<grid, tc::kWarpgroup, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, delta, dq_acc, dk, dv, S, Tk, causal,
+      sm_scale, sm_scale * tc::kLog2e);
+  return cudaGetLastError();
+}
+
+// ---- float32: the CUDA cores ----------------------------------------------
+
+template <int D>
+cudaError_t launch_main(const float* q, const float* k, const float* v,
+                        const float* lse, const float* delta,
+                        const float* dout, float* dq_acc, float* dk,
+                        float* dv, int BH, int S, int Tk, int causal,
+                        float sm_scale, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<float, D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH, (Tk + kBK - 1) / kBK);
+  flash_bwd_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, lse, delta, dout, dq_acc, dk, dv, S, Tk, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+// delta, the main kernel of T's type, and (bfloat16) the cast of dq
 template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const float* lse, const void* dout, void* dq, void* dk,
@@ -304,18 +605,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  constexpr size_t smem = bwd_smem_bytes<T, D>();
-  e = cudaFuncSetAttribute(flash_bwd_kernel<T, D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(BH, (Tk + kBK - 1) / kBK);
-  flash_bwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lse, delta, static_cast<const T*>(dout),
-      dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), S, Tk, causal,
-      sm_scale);
-  e = cudaGetLastError();
+  e = launch_main<D>(static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), lse, delta,
+                     static_cast<const T*>(dout), dq_acc, static_cast<T*>(dk),
+                     static_cast<T*>(dv), BH, S, Tk, causal, sm_scale, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (static_cast<void*>(dq_acc) != dq) {  // bfloat16 inputs
     const long long n = rows * D;
@@ -356,7 +649,7 @@ extern "C" {
 // dout (as o): dq, dk, dv of the inputs' shapes and type.  lse is the
 // forward's (BH, S) row log-sum-exp; dq_acc (BH, S, D) float32 must be
 // zero on entry (for float32 inputs it may be dq itself); delta (BH, S)
-// float32 is scratch.
+// float32 is scratch.  bfloat16 q, k, v, dout are 16-byte aligned (TMA).
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const float* lse,
                                const void* dout, void* dq, void* dk, void* dv,

@@ -1,11 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one source under ``repro_torch/csrc/`` with a plain C
-interface.  At first use ``nvcc`` compiles it for ``sm_90a`` into a
-shared library under ``build/kernels/`` of the checkout, named by the
-kernel and a digest of its source and flags, and ``ctypes`` loads it.
-``build_all`` starts one ``nvcc`` per source at once and waits for all.
-Nothing is built when this module is imported.
+interface (the headers there, ``*.cuh``, are shared).  At first use
+``nvcc`` compiles it for ``sm_90a`` into a shared library under
+``build/kernels/`` of the checkout, named by the kernel and a digest of
+its source, the headers and the flags, and ``ctypes`` loads it; what
+``nvcc`` printed (``ptxas -v``: registers, spills and shared memory of
+each kernel) is kept beside it (``build_log``).  ``build_all`` starts one
+``nvcc`` per source at once and waits for all.  Nothing is built when
+this module is imported.
 """
 from __future__ import annotations
 
@@ -20,13 +23,13 @@ import time
 from typing import Dict, Iterable
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "KERNELS", "source", "build_all",
-           "library", "check"]
+           "library", "library_path", "build_log", "check"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 # <checkout>/build/kernels (src/repro_torch -> src -> checkout root)
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("dse_eval", "flash_attention", "flash_attention_bwd", "ssm_scan",
            "ssm_scan_bwd", "horner")
 
@@ -46,10 +49,20 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> pathlib.Path:
-    src = source(name).read_bytes()
-    digest = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of ``name`` is (or will be) built."""
+    h = hashlib.sha256(source(name).read_bytes())
+    for hdr in sorted((_PKG / "csrc").glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(repr(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when it built ``name`` ('' if no log was
+    kept)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
@@ -61,7 +74,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, secs = {}, {}
     for name in names:
-        lib = _target(name)
+        lib = library_path(name)
         if lib.exists():
             secs[name] = 0.0
             continue
@@ -77,6 +90,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
             failed.append(f"nvcc failed ({proc.returncode}) for {name}:\n"
                           f"{' '.join(cmd)}\n{out}")
             continue
+        lib.with_suffix(".log").write_text(out)
         os.replace(tmp, lib)
         secs[name] = time.perf_counter() - t0
     if failed:
@@ -90,7 +104,7 @@ def library(name: str) -> ctypes.CDLL:
     exports ``<name>_error_string(int) -> const char*`` beside its
     launch functions, whose argument types the caller sets."""
     build_all([name])
-    lib = ctypes.CDLL(str(_target(name)))
+    lib = ctypes.CDLL(str(library_path(name)))
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p

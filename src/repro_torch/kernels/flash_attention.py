@@ -4,7 +4,9 @@ backward).
 The sources are ``repro_torch/csrc/flash_attention.cu`` (the forward) and
 ``repro_torch/csrc/flash_attention_bwd.cu`` (the backward); see their
 headers for what each computes, what bounds it and its tolerance against
-the plain version.  ``_build`` compiles and loads them at first use.
+the plain version.  bfloat16 runs on the tensor cores (wgmma on tiles
+that TMA brings in, ``csrc/hopper_tc.cuh``), float32 on the CUDA cores.
+``_build`` compiles and loads them at first use.
 """
 from __future__ import annotations
 
@@ -49,6 +51,14 @@ def _check_size(q: torch.Tensor, T: int) -> None:
                          f"T={T}")
 
 
+def _check_aligned(*ts: torch.Tensor) -> None:
+    """The bf16 kernels read their inputs by TMA, which takes 16-byte
+    aligned base addresses."""
+    if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash_attention: bfloat16 tensors must start on "
+                         "a 16-byte boundary (TMA)")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool, with_lse: bool = False):
     """Launch on the current stream.  q (B, H, S, D), k and v (B, H, T, D):
@@ -59,6 +69,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, S, D = q.shape
     T = k.shape[2]
     _check_size(q, T)
+    _check_aligned(q, k, v)
     lib = _library()
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
@@ -83,6 +94,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     B, H, S, D = q.shape
     T = k.shape[2]
     _check_size(q, T)
+    _check_aligned(q, k, v, dout)
     lib = _bwd_library()
     # dq is summed over the key tiles by atomics, in float32
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)

@@ -83,7 +83,7 @@ def case():
 
 
 def _models():
-    return R.cost_model(R_CALIB, np), P.cost_model(P_CALIB)
+    return R.cost_model(R_CALIB, np), P.cost_model(P_CALIB, "cpu")
 
 
 def _same(got, want, what):

@@ -1,6 +1,6 @@
 """PyTorch port on the card: the hand-written CUDA kernels (``dse_eval``,
 ``flash_attention`` and its backward, ``ssm_scan`` and its backward,
-``horner``) against their plain versions, a refused launch, and the
+``horner``) against their plain versions, refused launches, and the
 batched engine on ``cuda`` against the same engine on the CPU.  Every test
 here needs an NVIDIA GPU (and nvcc); elsewhere each one skips with its
 reason.  Torch only, no JAX, so the
@@ -97,10 +97,15 @@ def _bf16_tol(dtype):
         else dict(rtol=2e-5, atol=2e-5)
 
 
+# S = T = 200 at every head dim: ragged 64-row tiles, and each of the bf16
+# kernels' swizzles (32, 64, 128 B; two 128 B atoms at D 128)
+_RAGGED = [(2, 3, 200, d) for d in (16, 32, 64, 128)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 1, 128, 64), (2, 3, 256, 64),
                                    (4, 32, 512, 128), (1, 2, 100, 16),
-                                   (2, 4, 192, 32)])
+                                   (2, 4, 192, 32)] + _RAGGED)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_attention_matches_plain_version(cuda, shape, dtype,
@@ -118,16 +123,18 @@ def test_cuda_flash_attention_matches_plain_version(cuda, shape, dtype,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,T", [(128, 256), (256, 128), (70, 130)])
-def test_cuda_flash_attention_cross_lengths(cuda, S, T):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_cross_lengths(cuda, S, T, dtype):
     """T > S offsets the causal diagonal; T < S leaves rows that see no
-    key, which average every key as the reference does."""
+    key, which average every key as the reference does.  float32 runs on
+    the CUDA cores (2e-5), bfloat16 on the tensor cores (2e-2)."""
     g = torch.Generator(device=cuda).manual_seed(S + T)
-    q = torch.randn((1, 2, S, 64), generator=g, device=cuda)
-    k = torch.randn((1, 2, T, 64), generator=g, device=cuda)
-    v = torch.randn((1, 2, T, 64), generator=g, device=cuda)
-    torch.testing.assert_close(K.flash_attention(q, k, v),
-                               P.flash_attention_ref(q, k, v),
-                               rtol=2e-5, atol=2e-5)
+    q = torch.randn((1, 2, S, 64), generator=g, device=cuda).to(dtype)
+    k = torch.randn((1, 2, T, 64), generator=g, device=cuda).to(dtype)
+    v = torch.randn((1, 2, T, 64), generator=g, device=cuda).to(dtype)
+    torch.testing.assert_close(K.flash_attention(q, k, v).float(),
+                               P.flash_attention_ref(q, k, v).float(),
+                               **_bf16_tol(dtype))
 
 
 @pytest.mark.gpu
@@ -162,7 +169,8 @@ def _rel_max(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 2, 128, 128, 64), (2, 3, 70, 70, 32),
                                    (1, 2, 64, 130, 16), (1, 2, 130, 64, 16),
-                                   (1, 4, 256, 256, 128)])
+                                   (1, 4, 256, 256, 128)]
+                         + [(b, h, s, s, d) for b, h, s, d in _RAGGED])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_attention_bwd_matches_plain_version(cuda, shape, dtype,
@@ -170,8 +178,9 @@ def test_cuda_flash_attention_bwd_matches_plain_version(cuda, shape, dtype,
     """The backward kernel (through the autograd entry point) against
     autograd of the plain version: within 1e-5 of each gradient's largest
     magnitude in float32, 2e-2 in bfloat16 (the plain version rounds its
-    bf16 scores and probabilities; the kernel works in float32).  T < S
-    leaves rows that see no key (uniform weights, no gradient to q, k)."""
+    bf16 scores and probabilities, the tensor-core kernel P and dS).
+    T < S leaves rows that see no key (uniform weights, no gradient to q,
+    k)."""
     B, H, S, T, D = shape
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
     q = torch.randn((B, H, S, D), generator=g, device=cuda).to(dtype)
@@ -245,10 +254,18 @@ def test_cuda_horner_bitwise_plain_version(cuda, n, degree, dtype):
 
 @pytest.mark.gpu
 def test_cuda_refused_launch_raises(cuda):
-    """An unsupported head dim and too many coefficients raise on the card;
-    nothing falls back to the plain version."""
+    """An unsupported head dim, bf16 tensors that do not start on a
+    16-byte boundary (the tensor-core kernels read by TMA) and too many
+    coefficients raise on the card; nothing falls back to the plain
+    version."""
     before = dict(K.launch_counts)
     q = torch.zeros((1, 2, 64, 24), device=cuda)
+    with pytest.raises(ValueError):
+        K.flash_attention(q, q, q)
+    base = torch.zeros((2 * 64 * 64 + 1,), device=cuda,
+                       dtype=torch.bfloat16)
+    q = base[1:].view(1, 2, 64, 64)   # contiguous, 2 bytes in
+    assert q.is_contiguous() and q.data_ptr() % 16
     with pytest.raises(ValueError):
         K.flash_attention(q, q, q)
     with pytest.raises(ValueError):
