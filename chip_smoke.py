@@ -30,19 +30,21 @@ script exits non-zero without printing a result):
                 x 3 workloads in both modes (ok masks equal, metrics within
                 rel 1e-9), and the port on ``hetero_bls()`` against the
                 golden traces in tests/golden (rtol 1e-6);
-8. build     -- loads flash_attention and ssm_scan (built in phase 2) and
-                prints their build seconds, the number of ``HGMMA``
-                (wgmma) instructions in each flash library
-                (``cuobjdump --dump-sass``; fails if either has none) and
-                the registers and spills ``ptxas -v`` gave each
-                tensor-core flash kernel;
+8. build     -- loads flash_attention and ssm_scan and their backward
+                libraries (built in phase 2) and prints their build
+                seconds, the number of ``HGMMA`` (wgmma) instructions in
+                each (``cuobjdump --dump-sass``; fails if one has none) and
+                the registers and spills ``ptxas -v`` gave each tensor-core
+                kernel (fails if a bf16 scan kernel spills);
 9. lm kernels -- both at the first prefill wave's shapes (batch 4, 512
                 tokens, bf16) against their plain versions (flash 2e-2,
                 ssm_scan 5e-2), timed with CUDA events beside the plain
                 version, the bound and, for flash,
                 ``scaled_dot_product_attention`` (a yardstick only); and
-                flash_attention again at phase 15's training shape
-                (batch 4, 48 heads, 2,048 tokens, causal, bf16);
+                each again at its training phase's shape: flash_attention
+                at phase 15's (batch 4, 48 heads, 2,048 tokens, causal),
+                ssm_scan at phase 14's (mamba2-780m, batch 8 x 2,048, 48
+                heads, P 64, N 128, chunk 64), bf16;
 10. serve    -- the LM main path: Jamba-v0.1 at full width, one period of
                 8 layers, random weights from ``torch.Generator`` seed 0,
                 ``ServeEngine(max_batch=4, max_len=1024)`` serving 8
@@ -560,6 +562,7 @@ def _lm_kernel_phase(torch, dev):
 
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    from repro_torch.launch import tuning
     from repro_torch.models.registry import get_config
 
     cfg = get_config(LM_ARCH)
@@ -587,6 +590,30 @@ def _lm_kernel_phase(torch, dev):
                    lambda: kref.flash_attention_ref(qt, kt, vt, causal=True))
     ssm = (lambda: kops.ssm_scan(x, dt, a_log, b, c, chunk=L),
            lambda: kref.ssm_scan_ref(x, dt, a_log, b, c, chunk=L))
+    # phase 14's scan (mamba2-780m at batch 8 x 2,048)
+    scfg = get_config(TRAIN_SSM_ARCH)
+    Bm, Sm, Lm = TRAIN_SSM_BATCH, TRAIN_SEQ, tuning.KNOBS.ssd_chunk
+    Hm, Pm, Nm = scfg.ssm_heads, scfg.ssm_head_dim, scfg.ssm_state
+    xm = torch.randn((Bm, Sm, Hm, Pm), generator=g, device=dev).to(bf16)
+    dtm = 0.01 + 0.19 * torch.rand((Bm, Sm, Hm), generator=g, device=dev)
+    a_logm = torch.log(torch.arange(1, Hm + 1, dtype=torch.float32,
+                                    device=dev))
+    bm, cm = (torch.randn((Bm, Sm, Nm), generator=g, device=dev).to(bf16)
+              for _ in range(2))
+    ssm_train = (lambda: kops.ssm_scan(xm, dtm, a_logm, bm, cm, chunk=Lm),
+                 lambda: kref.ssm_scan_ref(xm, dtm, a_logm, bm, cm, chunk=Lm))
+
+    def ssm_case(run, x, b, L, H, shape):
+        """2 L (L N + L P + 2 N P) flops per (batch, head, chunk); x, dt,
+        a_log, b, c read and y written once"""
+        Bs, Ss, _, Ps = x.shape
+        Ns = b.shape[-1]
+        return dict(
+            run=run, tol=SSM_TOL,
+            ops=2 * L * (L * Ns + L * Ps + 2 * Ns * Ps) * Bs * H * (Ss // L),
+            bytes=2 * x.numel() * x.element_size() + Bs * Ss * H * 4 + H * 4
+            + 2 * b.numel() * b.element_size(),
+            library=None, shape=shape)
     cases = {
         # 2 products of 2 D flops for every visible (query, key) pair;
         # q, k, v read and o written once
@@ -603,14 +630,11 @@ def _lm_kernel_phase(torch, dev):
             library=lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True),
             shape=dict(B=Bt, H=Ht, S=St, T=St, D=Dt, causal=True)),
-        # 2 L (L N + L P + 2 N P) flops per (batch, head, chunk); x, dt,
-        # a_log, b, c read and y written once
-        "ssm_scan": dict(
-            run=ssm, tol=SSM_TOL,
-            ops=2 * L * (L * N + L * P + 2 * N * P) * B * Hs * (S // L),
-            bytes=2 * x.numel() * x.element_size() + dt.numel() * 4
-            + a_log.numel() * 4 + 2 * b.numel() * b.element_size(),
-            library=None, shape=dict(B=B, S=S, H=Hs, P=P, N=N, chunk=L))}
+        "ssm_scan": ssm_case(ssm, x, b, L, Hs,
+                             dict(B=B, S=S, H=Hs, P=P, N=N, chunk=L)),
+        "ssm_scan@train": ssm_case(ssm_train, xm, bm, Lm, Hm,
+                                   dict(B=Bm, S=Sm, H=Hm, P=Pm, N=Nm,
+                                        chunk=Lm))}
     out = {}
     for name, cs in cases.items():
         kernel, plain = cs["run"]
@@ -851,20 +875,28 @@ def _lm_phases(torch, np, dev, record, build_s, profile):
     flash_attention._library()
     flash_attention._bwd_library()
     ssm_scan._library()
+    ssm_scan._bwd_library()
     load_s = time.perf_counter() - t0
-    hgmma = {n: _sass_count(_build.library_path(n), "HGMMA")
-             for n in ("flash_attention", "flash_attention_bwd")}
-    check(all(hgmma.values()), f"a flash library has no HGMMA: {hgmma}")
+    libs = ("flash_attention", "flash_attention_bwd", "ssm_scan",
+            "ssm_scan_bwd")
+    hgmma = {n: _sass_count(_build.library_path(n), "HGMMA") for n in libs}
+    check(all(hgmma.values()), f"a tensor-core library has no HGMMA: "
+          f"{hgmma}")
     regs = {}
-    for n, kern in (("flash_attention", "flash_fwd_tc_kernel"),
-                    ("flash_attention_bwd", "flash_bwd_tc_kernel")):
-        regs.update(_ptxas_usage(_build.build_log(n),
-                                 rf"({kern}ILi\d+E)"))
-    record["flash_build"] = {"hgmma": hgmma, "ptxas": regs}
+    for n, kern in (("flash_attention", r"flash_fwd_tc_kernelILi\d+E"),
+                    ("flash_attention_bwd", r"flash_bwd_tc_kernelILi\d+E"),
+                    ("ssm_scan", r"chunk_\w+_kernelILi\d+ELi\d+E"),
+                    ("ssm_scan_bwd", r"chunk_grads_kernelILi\d+ELi\d+E")):
+        regs.update(_ptxas_usage(_build.build_log(n), rf"({kern})"))
+    spills = {k: v for k, v in regs.items() if k.startswith("chunk_")
+              and (v.get("spill_stores") or v.get("spill_loads"))}
+    check(not spills, f"bf16 scan kernels spill: {spills}")
+    record["tc_build"] = {"hgmma": hgmma, "ptxas": regs}
     _phase(8, "build", f"flash_attention built in "
            f"{build_s['flash_attention']:.3f} s, flash_attention_bwd in "
            f"{build_s['flash_attention_bwd']:.3f} s, ssm_scan in "
-           f"{build_s['ssm_scan']:.3f} s (with phase 2's, in parallel); "
+           f"{build_s['ssm_scan']:.3f} s, ssm_scan_bwd in "
+           f"{build_s['ssm_scan_bwd']:.3f} s (with phase 2's, in parallel); "
            f"loaded in {load_s:.3f} s; HGMMA instructions {hgmma}; "
            f"ptxas -v of the tensor-core kernels {regs}")
     record["lm_kernels"] = _lm_kernel_phase(torch, dev)

@@ -1,10 +1,12 @@
 // Hopper tensor-core building blocks shared by the bf16 flash kernels
-// (flash_attention.cu, flash_attention_bwd.cu): TMA tensor maps and
-// loads, mbarriers, wgmma descriptors and the wgmma instructions they
-// use, all in inline PTX for sm_90a (no CUTLASS).
+// (flash_attention.cu, flash_attention_bwd.cu) and the bf16 scan kernels
+// (ssm_tc.cuh, ssm_scan.cu, ssm_scan_bwd.cu): TMA tensor maps and loads,
+// mbarriers, wgmma descriptors and the wgmma instructions they use, all
+// in inline PTX for sm_90a (no CUTLASS).
 //
-// Tiles.  A tile is 64 rows of a (BH, rows, D) bf16 tensor, brought into
-// shared memory by one or two TMA boxes of (64 rows, min(D, 64) columns).
+// Tiles.  A tile is 64 rows of a (BH, rows, D) bf16 tensor (or of one head
+// of a (B, rows, H, D) one), brought into shared memory by one or two TMA
+// boxes of (64 rows, min(D, 64) columns).
 // Each box lands as 64 rows of min(D, 64) * 2 bytes (32, 64 or 128),
 // swizzled by the TMA with the swizzle of that span (32 B, 64 B, 128 B),
 // so a tile of D 128 is two 8 KB atoms of the 128 B swizzle side by side.
@@ -67,32 +69,57 @@ inline cudaError_t encode_fn(EncodeTiledFn* fn) {
   return cudaSuccess;
 }
 
+// A bf16 map of `rank` dimensions (innermost first) whose boxes hold
+// box[0] = min(D, 64) of the D innermost elements, swizzled by that row's
+// span (32, 64 or 128 B); rows past a dimension's end read as zeros.
+inline cudaError_t encode_bf16(CUtensorMap* map, const void* base,
+                               cuuint32_t rank, const cuuint64_t* dims,
+                               const cuuint64_t* strides,
+                               const cuuint32_t* box) {
+  EncodeTiledFn encode;
+  const cudaError_t e = encode_fn(&encode);
+  if (e != cudaSuccess) return e;
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box[0] == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A 3-D map over a contiguous (BH, rows, D) bf16 tensor with boxes of
 // (1, 64, min(D, 64)): a box never crosses into the next bh, and rows
 // past `rows` read as zeros.  `base` must be 16-byte aligned.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int BH,
                             int rows, int D) {
-  EncodeTiledFn encode;
-  const cudaError_t e = encode_fn(&encode);
-  if (e != cudaSuccess) return e;
-  const int cols = D < 64 ? D : 64;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(BH)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(D < 64 ? D : 64),
                              static_cast<cuuint32_t>(kRows), 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-      dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_bf16(map, base, 3, dims, strides, box);
+}
+
+// A 4-D map over a contiguous (B, rows, H, D) bf16 tensor with boxes of
+// (1, 64, 1, min(D, 64)): one head's rows, which land as the 3-D map's
+// boxes do.  `base` must be 16-byte aligned and D a multiple of 8.
+inline cudaError_t make_map_4d(CUtensorMap* map, const void* base, int B,
+                               int rows, int H, int D) {
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+      static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(H) * D * 2,
+                                 static_cast<cuuint64_t>(rows) * H * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D < 64 ? D : 64), 1,
+                             static_cast<cuuint32_t>(kRows), 1};
+  return encode_bf16(map, base, 4, dims, strides, box);
 }
 
 // ---- device: shared memory, mbarriers, TMA -----------------------------
@@ -154,6 +181,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -238,6 +277,24 @@ struct Tile {
 #pragma unroll
     for (int c = 0; c < D / kCols; ++c)
       tma_load_3d(dst + c * kAtomBytes, map, bar, c * kCols, row, bh);
+  }
+  // the same from a make_map_4d map: rows row .. row + 63 of (b, h)
+  static __device__ __forceinline__ void load_4d(uint32_t dst,
+                                                 const CUtensorMap* map,
+                                                 uint32_t bar, int row,
+                                                 int b, int h) {
+#pragma unroll
+    for (int c = 0; c < D / kCols; ++c)
+      tma_load_4d(dst + c * kAtomBytes, map, bar, c * kCols, h, row, b);
+  }
+  // the byte offset of element (row, col) in the swizzled layout: within
+  // an atom, the 16-byte chunk index (bits 4..) is XORed with the row's
+  // place in its 8-row group (bits 7..9 of the unswizzled offset), as the
+  // TMA and wgmma's swizzle modes do
+  static __device__ __forceinline__ uint32_t offset(int row, int col) {
+    const uint32_t o = row * kRowBytes + (col % kCols) * 2;
+    return (col / kCols) * kAtomBytes +
+           (o ^ (((o >> 7) & (kRowBytes / 16 - 1)) << 4));
   }
 };
 

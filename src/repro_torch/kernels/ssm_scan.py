@@ -2,9 +2,14 @@
 backward).
 
 The sources are ``repro_torch/csrc/ssm_scan.cu`` (the forward) and
-``repro_torch/csrc/ssm_scan_bwd.cu`` (the backward); see their headers for
-what each computes, what bounds it and its tolerance against the plain
-version.  ``_build`` compiles and loads them at first use.
+``repro_torch/csrc/ssm_scan_bwd.cu`` (the backward), with the stages they
+share in ``repro_torch/csrc/ssm_tc.cuh``; see their headers for what each
+computes, what bounds it and its tolerance against the plain version.
+bfloat16 runs on the tensor cores as chunk-parallel stages, float32 on the
+CUDA cores; the bfloat16 kernels take P in ``TC_HEAD_DIMS``, a state width
+N of at most ``TC_STATES[-1]`` (zero-padded here to the next of
+``TC_STATES``) and chunks of at most ``TC_MAX_CHUNK`` rows, and raise
+otherwise.  ``_build`` compiles and loads them at first use.
 """
 from __future__ import annotations
 
@@ -15,14 +20,19 @@ import torch
 
 from . import _build
 
-__all__ = ["ssm_scan_cuda", "ssm_scan_bwd_cuda"]
+__all__ = ["ssm_scan_cuda", "ssm_scan_bwd_cuda", "TC_HEAD_DIMS",
+           "TC_STATES", "TC_MAX_CHUNK"]
+
+TC_HEAD_DIMS = (16, 32, 64)        # the bf16 kernels' instantiations of P
+TC_STATES = (16, 32, 64, 128)      # ... and of N
+TC_MAX_CHUNK = 128                 # two 64-row tiles a chunk
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = _build.library("ssm_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssm_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.ssm_scan_launch.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.ssm_scan_launch.restype = ctypes.c_int
     return lib
 
@@ -31,15 +41,40 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.library("ssm_scan_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssm_scan_bwd_launch.argtypes = [p] * 14 + [i] * 7 + [p]
+    lib.ssm_scan_bwd_launch.argtypes = [p] * 16 + [i] * 7 + [p]
     lib.ssm_scan_bwd_launch.restype = ctypes.c_int
     return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_size(x: torch.Tensor) -> None:
     B, S, H, P = x.shape
     if B * S * H * P >= 2 ** 62 or B * H >= 2 ** 31:
         raise ValueError(f"ssm_scan shape too large: {tuple(x.shape)}")
+
+
+def _tc_args(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, chunk: int,
+             *aligned: torch.Tensor):
+    """The bf16 kernels' limits; returns b, c zero-padded to the state
+    width they run (the padded columns add nothing to y and get no
+    gradient) and the number of 64-row tiles of one (batch, head)."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    if P not in TC_HEAD_DIMS or N > TC_STATES[-1] or chunk > TC_MAX_CHUNK:
+        raise ValueError(
+            f"ssm_scan in bfloat16 takes P in {TC_HEAD_DIMS}, N <= "
+            f"{TC_STATES[-1]} and chunks of at most {TC_MAX_CHUNK} rows; got "
+            f"P={P}, N={N}, chunk={chunk}")
+    width = next(n for n in TC_STATES if n >= N)
+    if width != N:
+        b, c = (torch.nn.functional.pad(t, (0, width - N)) for t in (b, c))
+    if any(t.data_ptr() % 16 for t in (x, b, c, *aligned)):
+        raise ValueError("ssm_scan: bfloat16 tensors must start on a "
+                         "16-byte boundary (TMA)")
+    return b, c, (S // chunk) * -(-chunk // 64)
 
 
 def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -50,15 +85,21 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     all contiguous on one CUDA device, S a multiple of ``chunk``.  Returns
     a new (B, S, H, P) tensor of x's dtype."""
     B, S, H, P = x.shape
-    N = b.shape[-1]
     _check_size(x)
     lib = _library()
     y = torch.empty_like(x)
+    states = decay = None
+    if x.dtype == torch.bfloat16:
+        b, c, nt = _tc_args(x, b, c, chunk)
+        # the chunk states, then the state entering each tile (in place)
+        states = torch.empty((B * H, nt, P, b.shape[-1]), dtype=torch.float32,
+                             device=x.device)
+        decay = torch.empty((B * H, nt), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.ssm_scan_launch(
         x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), B, S, H, P, N, chunk,
-        int(x.dtype == torch.bfloat16), stream)
+        c.data_ptr(), y.data_ptr(), _ptr(states), _ptr(decay), B, S, H, P,
+        b.shape[-1], chunk, int(x.dtype == torch.bfloat16), stream)
     _build.check(lib, "ssm_scan", rc)
     return y
 
@@ -69,28 +110,42 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """Launch the backward on the current stream: the forward's inputs (as
     ``ssm_scan_cuda`` takes them) and the output gradient ``dy`` (as x).
     Returns new (dx, ddt, da_log, db, dc), each of its input's dtype.  The
-    kernel sums db, dc over the heads and d a_log over the batch with
+    kernels sum db, dc over the heads and d a_log over the batch with
     float32 atomics."""
     B, S, H, P = x.shape
     N = b.shape[-1]
     _check_size(x)
     lib = _bwd_library()
     f32, dev = torch.float32, x.device
+    bf16 = x.dtype == torch.bfloat16
+    d_states = decay = None
+    if bf16:
+        b, c, nt = _tc_args(x, b, c, chunk, dy)
+        # the state entering each tile, and the gradient of the state
+        # leaving it
+        states, d_states = (torch.empty((B * H, nt, P, b.shape[-1]),
+                                        dtype=f32, device=dev)
+                            for _ in range(2))
+        decay = torch.empty((B * H, nt), dtype=f32, device=dev)
+    else:
+        states = torch.empty((B * H, S // chunk, P, N), dtype=f32, device=dev)
+    width = b.shape[-1]
     dx = torch.empty_like(x)
     ddt = torch.empty((B, S, H), dtype=f32, device=dev)
     da = torch.zeros((H,), dtype=f32, device=dev)
     # db and dc are summed over the heads by atomics, in float32
-    db_acc = torch.zeros((B, S, N), dtype=f32, device=dev)
-    dc_acc = torch.zeros((B, S, N), dtype=f32, device=dev)
-    db, dc = (db_acc, dc_acc) if b.dtype == f32 else (
-        torch.empty_like(b), torch.empty_like(c))
-    states = torch.empty((B * H, S // chunk, P, N), dtype=f32, device=dev)
+    db_acc = torch.zeros((B, S, width), dtype=f32, device=dev)
+    dc_acc = torch.zeros((B, S, width), dtype=f32, device=dev)
+    db, dc = (torch.empty_like(b), torch.empty_like(c)) if bf16 else (
+        db_acc, dc_acc)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ssm_scan_bwd_launch(
         x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
         c.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
         da.data_ptr(), db.data_ptr(), dc.data_ptr(), db_acc.data_ptr(),
-        dc_acc.data_ptr(), states.data_ptr(), B, S, H, P, N, chunk,
-        int(x.dtype == torch.bfloat16), stream)
+        dc_acc.data_ptr(), states.data_ptr(), _ptr(d_states), _ptr(decay),
+        B, S, H, P, width, chunk, int(bf16), stream)
     _build.check(lib, "ssm_scan_bwd", rc)
+    if width != N:
+        db, dc = db[..., :N].contiguous(), dc[..., :N].contiguous()
     return dx, ddt, da, db, dc

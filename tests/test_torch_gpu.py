@@ -235,6 +235,76 @@ def test_cuda_ssm_scan_bwd_matches_plain_version(cuda, shape, dtype):
         assert _rel_max(a, w) <= tol, (name, _rel_max(a, w))
 
 
+# (B, S, H, P, N, chunk): a chunk that is not a multiple of 16 (one 64-row
+# tile with 16 rows masked; the last tile's rows past S read as zeros),
+# chunks of 128 rows (two tiles a chunk) and of 96 (64 + 32), at N 16 and
+# N 128 and at each P of the bf16 kernels
+_CHUNKS = [(1, 48, 2, 64, 16, 48), (1, 48, 2, 64, 128, 48),
+           (2, 144, 3, 32, 16, 48), (2, 256, 3, 64, 16, 128),
+           (1, 256, 2, 16, 128, 128), (1, 192, 2, 64, 32, 96)]
+
+
+def _ssm_inputs(cuda, shape, dtype):
+    B, S, H, Pd, N, _ = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn((B, S, H, Pd), generator=g, device=cuda).to(dtype)
+    dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=g, device=cuda)
+    al = 2 * torch.rand((H,), generator=g, device=cuda) - 1
+    b, c = (torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    dy = torch.randn((B, S, H, Pd), generator=g, device=cuda).to(dtype)
+    return x, dt, al, b, c, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype",
+                         [(s, torch.bfloat16) for s in _CHUNKS]
+                         + [(s, torch.float32) for s in _CHUNKS
+                            if s[-1] < 128])
+def test_cuda_ssm_scan_chunk_lengths(cuda, shape, dtype):
+    """Chunk lengths other than 64: the forward within the limits of
+    test_cuda_ssm_scan_matches_plain_version, the gradients within those
+    of test_cuda_ssm_scan_bwd_matches_plain_version.  Chunks of 128 rows
+    run in bfloat16 only: the float32 CUDA-core backward keeps the (L, L)
+    matrices in shared memory, more than a block has at that length."""
+    L = shape[-1]
+    x, dt, al, b, c, dy = _ssm_inputs(cuda, shape, dtype)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    before = dict(K.launch_counts)
+    got = K.ssm_scan(x, dt, al, b, c, chunk=L)
+    want = P.ssm_scan_ref(x, dt, al, b, c, chunk=L)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    ins = [t.clone().requires_grad_() for t in (x, dt, al, b, c)]
+    grads = torch.autograd.grad(K.ssm_scan(*ins, chunk=L), ins, dy)
+    torch.cuda.synchronize()
+    assert K.launch_counts["ssm_scan"] == before["ssm_scan"] + 2
+    assert K.launch_counts["ssm_scan_bwd"] == before["ssm_scan_bwd"] + 1
+    ref = [t.clone().requires_grad_() for t in (x, dt, al, b, c)]
+    wants = torch.autograd.grad(P.ssm_scan_ref(*ref, chunk=L), ref, dy)
+    for name, a, w in zip(("x", "dt", "a_log", "b", "c"), grads, wants):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert _rel_max(a, w) <= tol, (name, _rel_max(a, w))
+
+
+@pytest.mark.gpu
+def test_cuda_ssm_scan_bf16_limits_raise(cuda):
+    """bfloat16 chunks longer than 128 rows, and head dims the tensor-core
+    kernels do not instantiate, raise on the card, forward and backward;
+    nothing falls back to the CUDA-core kernels or the plain version."""
+    before = dict(K.launch_counts)
+    x, dt, al, b, c, dy = _ssm_inputs(cuda, (1, 256, 2, 64, 16, 256),
+                                      torch.bfloat16)
+    with pytest.raises(ValueError, match="128"):
+        K.ssm_scan(x, dt, al, b, c, chunk=256)
+    with pytest.raises(ValueError, match="128"):
+        K.ssm_scan_bwd(x, dt, al, b, c, dy, chunk=256)
+    x, dt, al, b, c, dy = _ssm_inputs(cuda, (1, 64, 2, 24, 16, 64),
+                                      torch.bfloat16)
+    with pytest.raises(ValueError):
+        K.ssm_scan(x, dt, al, b, c, chunk=64)
+    assert K.launch_counts == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 1000, 8192, 1 << 20])
 @pytest.mark.parametrize("degree", [0, 1, 8])

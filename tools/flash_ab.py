@@ -241,12 +241,15 @@ def run_checkout(root, label):
     return res
 
 
-def run_parent(parent):
+def run_parent(parent, script=__file__):
+    """Runs ``script --one`` on the checkout ``parent`` and on this one in
+    turns (parent, this, this, parent), each in a process of its own, and
+    returns the result each printed."""
     results = []
     for label, root in (("parent", parent), ("this", ROOT), ("this", ROOT),
                         ("parent", parent)):
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one",
+            [sys.executable, os.path.abspath(script), "--one",
              os.path.abspath(root), "--label", label],
             capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines()
