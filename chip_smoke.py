@@ -14,9 +14,11 @@ script exits non-zero without printing a result):
                 together;
 3. kernel    -- dse_eval against its plain PyTorch version on the card,
                 at the main path's shapes (4,096 genomes x the op rows of
-                all 20 workloads) and on the no-hostable-tile case, with
-                tests/test_kernels.py's tolerances; times both with CUDA
-                events and computes the kernel's bound;
+                all 20 workloads) and on the no-hostable-tile case: the
+                seconds and the energy bit for bit; times both with CUDA
+                events, the kernel also by torch.profiler's device time
+                ("not measured" when the profiler sees no such kernel),
+                and computes its bound;
 4. main path -- ``EvalEngine(workload_names(), EngineConfig(
                 backend="batched", mode="latency"))`` on ``cuda`` scores
                 4,096 random genomes on the 20 workloads, then again
@@ -44,7 +46,8 @@ script exits non-zero without printing a result):
                 each again at its training phase's shape: flash_attention
                 at phase 15's (batch 4, 48 heads, 2,048 tokens, causal),
                 ssm_scan at phase 14's (mamba2-780m, batch 8 x 2,048, 48
-                heads, P 64, N 128, chunk 64), bf16;
+                heads, P 64, N 128, chunk 64), bf16, and the float32
+                CUDA-core ssm_scan there in chunks of 128 (1e-4);
 10. serve    -- the LM main path: Jamba-v0.1 at full width, one period of
                 8 layers, random weights from ``torch.Generator`` seed 0,
                 ``ServeEngine(max_batch=4, max_len=1024)`` serving 8
@@ -59,13 +62,15 @@ script exits non-zero without printing a result):
 12. lm backward kernels -- ssm_scan_bwd at phase 14's shapes and
                 flash_attention_bwd at phase 15's against autograd of their
                 plain versions (5e-2 and 2e-2 of each gradient's largest
-                magnitude, bf16), timed beside the plain version's
+                magnitude, bf16), and the float32 CUDA-core ssm_scan_bwd
+                in chunks of 128 (1e-4), timed beside the plain version's
                 backward, the bound and, for flash, the backward of
                 ``scaled_dot_product_attention`` (a yardstick only);
 13. horner   -- the KAN workload's first layer, 784 x 512 edge polynomials
                 of degree 8 over a batch of 64 (25.7 M elements), in
                 float32 and bfloat16 through ``ops.horner``, bit for bit
-                against the plain version, timed beside its byte bound;
+                against the plain version, timed (CUDA events and
+                torch.profiler's device time) beside its byte bound;
 14. train    -- the slice's main path: ``train_loop`` on mamba2-780m at
                 full width and depth (48 layers, 0.78e9 parameters),
                 global batch 8 x 2,048 tokens, 6 steps, remat, float32
@@ -148,6 +153,14 @@ TRAIN_ATTN_BATCH, TRAIN_ATTN_STEPS = 4, 4
 TRAIN_SSM_LR, TRAIN_ATTN_LR = 0.02, 1e-3
 # gradients, by the error over the gradient's largest magnitude (bf16)
 FLASH_BWD_TOL, SSM_BWD_TOL = 2e-2, 5e-2
+# the float32 CUDA-core scans (phases 9 and 12) at mamba2-780m's training
+# shape in chunks of 128 rows, tests/test_kernels.py's float32 limit (y
+# rel + abs; each gradient over its largest magnitude)
+F32_CHUNK, F32_SSM_TOL = 128, 1e-4
+# every scan kernel cuts a chunk into tiles of at most this many rows, each
+# its own sub-chunk (csrc/ssm_tc.cuh, csrc/ssm_scan.cu): the quadratic
+# work of a chunk of L rows is that of ceil(L / 64) tiles
+SCAN_TILE_ROWS = 64
 # card against CPU, per leaf, as tests/test_torch_train_step.py holds the
 # port against the reference: bf16 gradients within 2e-2 of each element
 # plus 2e-2 of the leaf's largest magnitude, float32 within 1e-4 of both.
@@ -215,22 +228,68 @@ def _time_ms(torch, fn, reps):
 
 
 def _compare_bounds(np, got, want):
-    """tests/test_kernels.py::test_dse_eval's tolerances; returns (max rel
-    err of finite seconds, max abs err over finite entries)."""
+    """The seconds and the energy bit for bit (the kernel does the plain
+    version's IEEE operations in its order, the energy's multiply and add
+    rounded apart); returns (max rel err of finite seconds, max abs err
+    over finite entries, max abs err of the energy)."""
     fin = np.isfinite(want[..., 0])
     check(np.array_equal(fin, np.isfinite(got[..., 0])),
           "kernel and plain version disagree on which ops are hostable")
     gs, ws = got[..., 0][fin].astype(np.float64), \
         want[..., 0][fin].astype(np.float64)
     rel = np.abs(gs - ws) / np.maximum(np.abs(ws), 1e-30)
-    check(rel.max(initial=0.0) <= 1e-5,
-          f"kernel seconds off by rel {rel.max():.3e} (> 1e-5)")
+    check(np.array_equal(got[..., 0], want[..., 0]),
+          f"kernel seconds not bit for bit the plain version's (max rel err "
+          f"{rel.max(initial=0.0):.3e})")
     ge, we = got[..., 1].astype(np.float64), want[..., 1].astype(np.float64)
-    check(np.all(np.abs(ge - we) <= 1.0 + 1e-4 * np.abs(we)),
-          "kernel energy outside rtol 1e-4 / atol 1.0")
-    abs_err = max(float(np.abs(gs - ws).max(initial=0.0)),
-                  float(np.abs(ge - we).max(initial=0.0)))
-    return float(rel.max(initial=0.0)), abs_err
+    e_err = float(np.abs(ge - we).max(initial=0.0))
+    check(np.array_equal(got[..., 1], want[..., 1]),
+          f"kernel energy not bit for bit the plain version's (max abs err "
+          f"{e_err:.6g})")
+    abs_err = max(float(np.abs(gs - ws).max(initial=0.0)), e_err)
+    return float(rel.max(initial=0.0)), abs_err, e_err
+
+
+def _device_ms(torch, fn, reps, match):
+    """Device ms per run of ``fn()`` by torch.profiler (``reps`` runs after
+    a warm-up), summed by kernel name over the kernels whose name contains
+    ``match``.  Returns ({name: [ms per run, launches per run]}, total ms
+    per run, sessions): a session that saw none of the kernels is tried
+    again, up to three sessions, and ``sessions`` counts them (on an
+    NVIDIA H100 a session has once seen none, cause unknown: PERF.md).
+    When all three saw none the total is None: not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for sessions in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per_name = {}
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA") and match in e.name:
+                r = per_name.setdefault(e.name, [0.0, 0])
+                r[0] += float(e.time_range.elapsed_us()) / 1e3 / reps
+                r[1] += 1
+        if per_name:
+            break
+    for r in per_name.values():
+        r[1] /= reps
+    total = sum(r[0] for r in per_name.values()) if per_name else None
+    return per_name, total, sessions
+
+
+def _device_text(ms, by_name, sessions):
+    """The device time as the phases print it."""
+    if ms is None:
+        return f"device not measured (torch.profiler saw no such kernel " \
+            f"in {sessions} sessions)"
+    return f"device {ms:.4f} ms (torch.profiler, session {sessions}: " \
+        f"{json.dumps(by_name)})"
 
 
 def _trace(torch, run):
@@ -318,6 +377,28 @@ def _profile_serve_steps(torch, model, cfg, dev):
     return out
 
 
+def dse_launches(np, dev):
+    """Phase 3's inputs: POPULATION genomes from ``default_rng(0)``, their
+    configs placed on ``dev``, and the ``dse_eval`` launches
+    ``pack_launches`` makes of them over the 20 workloads; returns
+    (genomes, configs, placed, launches)."""
+    from repro_torch.core.dse.encoding import random_genomes
+    from repro_torch.core.dse.engine import (genomes_to_configs,
+                                             prepared_workload)
+    from repro_torch.core.dse.prefilter import pack_launches
+    from repro_torch.core.simulator.batched import place_configs
+    from repro_torch.core.workloads import workload_names
+
+    genomes = random_genomes(np.random.default_rng(0), POPULATION)
+    cfgs = genomes_to_configs(genomes)
+    placed = place_configs(cfgs, dev)
+    launches = []
+    for w in workload_names():
+        launches += pack_launches(cfgs, prepared_workload(w), device=dev,
+                                  placed=placed)
+    return genomes, cfgs, placed, launches
+
+
 def _dse_phases(torch, np, dev, args, record):
     """Phases 3-7, the DSE evaluation path; returns the kernel line of
     ``dse_eval``.  Its tensors are freed when it returns."""
@@ -325,31 +406,24 @@ def _dse_phases(torch, np, dev, args, record):
     from repro_torch.core.compiler.batched_mapper import map_and_simulate
     from repro_torch.core.dse.api import EngineConfig
     from repro_torch.core.dse.encoding import random_genomes
-    from repro_torch.core.dse.engine import (EvalEngine, genomes_to_configs,
-                                             prepared_workload)
-    from repro_torch.core.dse.prefilter import pack_launches, roofline_bounds
-    from repro_torch.core.simulator.batched import (place_configs,
-                                                    stack_chip_configs)
+    from repro_torch.core.dse.engine import EvalEngine, prepared_workload
+    from repro_torch.core.dse.prefilter import roofline_bounds
+    from repro_torch.core.simulator.batched import stack_chip_configs
     from repro_torch.core.workloads import workload_names
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
 
     names = workload_names()
     # ---- 3. kernel against its plain version -------------------------------
-    genomes = random_genomes(np.random.default_rng(0), POPULATION)
-    cfgs = genomes_to_configs(genomes)
-    placed = place_configs(cfgs, dev)
-    launches = []
-    for w in names:
-        launches += pack_launches(cfgs, prepared_workload(w), device=dev,
-                                  placed=placed)
-    max_rel, max_abs = 0.0, 0.0
+    genomes, cfgs, placed, launches = dse_launches(np, dev)
+    max_rel, max_abs, max_e = 0.0, 0.0, 0.0
     for _, tiles, ops in launches:
         got = kops.dse_eval(tiles, ops)
         want = kref.dse_eval_ref(tiles, ops)
         torch.cuda.synchronize()
-        r, a = _compare_bounds(np, got.cpu().numpy(), want.cpu().numpy())
-        max_rel, max_abs = max(max_rel, r), max(max_abs, a)
+        r, a, e = _compare_bounds(np, got.cpu().numpy(), want.cpu().numpy())
+        max_rel, max_abs, max_e = max(max_rel, r), max(max_abs, a), \
+            max(max_e, e)
     # no tile can host the ops: inf seconds, energy from tile 0 (ref.py)
     nt = torch.zeros((2, 4, kref.TILE_FIELDS), dtype=torch.float32,
                      device=dev)
@@ -373,6 +447,10 @@ def _dse_phases(torch, np, dev, args, record):
 
     kernel_ms = _time_ms(torch, run_kernel, 20)
     plain_ms = _time_ms(torch, run_plain, 3)
+    # the device's own time: with a fast kernel the host's dispatch of 40
+    # small launches may set the event time
+    dev_names, dev_ms, dev_sessions = _device_ms(torch, run_kernel, 5,
+                                                 "dse_eval")
     n_bytes = sum(t.numel() * 4 + o.numel() * 4 + t.shape[0] * o.shape[0] * 8
                   for _, t, o in launches)
     n_ops = 0
@@ -387,12 +465,16 @@ def _dse_phases(torch, np, dev, args, record):
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     record["kernel"] = {
         "launches_per_suite": len(launches), "max_rel_err_seconds": max_rel,
-        "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
-        "fp32_ops": n_ops}
+        "max_abs_err": max_abs, "max_abs_err_energy": max_e,
+        "ms": kernel_ms, "device_ms": dev_ms, "device_ms_by_name": dev_names,
+        "profiler_sessions": dev_sessions,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes": n_bytes, "fp32_ops": n_ops}
     _phase(3, "kernel", f"{len(launches)} launches over 20 workloads x "
-           f"{POPULATION} genomes: max rel err (seconds) {max_rel:.3e}, "
-           f"max abs err {max_abs:.6g}; kernel {kernel_ms:.4f} ms, plain "
+           f"{POPULATION} genomes: seconds and energy bit for bit (max rel "
+           f"err {max_rel:.3e}, energy max abs err {max_e:.6g}); kernel "
+           f"{kernel_ms:.4f} ms (CUDA events), "
+           f"{_device_text(dev_ms, dev_names, dev_sessions)}, plain "
            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
            f"{n_ops:.4g} fp32 ops at {PEAK_FP32_FLOPS:.3g}/s, "
            f"{n_bytes:.4g} B at {PEAK_HBM_BYTES_PER_S:.3g} B/s, H100 SXM "
@@ -602,15 +684,24 @@ def _lm_kernel_phase(torch, dev):
               for _ in range(2))
     ssm_train = (lambda: kops.ssm_scan(xm, dtm, a_logm, bm, cm, chunk=Lm),
                  lambda: kref.ssm_scan_ref(xm, dtm, a_logm, bm, cm, chunk=Lm))
+    # the float32 CUDA-core scan at the same shape in chunks of 128 (two
+    # tiles a chunk), the reference entry point's default
+    xf, bf, cf = (t.float() for t in (xm, bm, cm))
+    ssm_f32 = (lambda: kops.ssm_scan(xf, dtm, a_logm, bf, cf,
+                                     chunk=F32_CHUNK),
+               lambda: kref.ssm_scan_ref(xf, dtm, a_logm, bf, cf,
+                                         chunk=F32_CHUNK))
 
-    def ssm_case(run, x, b, L, H, shape):
-        """2 L (L N + L P + 2 N P) flops per (batch, head, chunk); x, dt,
-        a_log, b, c read and y written once"""
+    def ssm_case(run, x, b, L, H, shape, tol=SSM_TOL, peak=PEAK_BF16_FLOPS):
+        """2 L (L N + L P + 2 N P) flops per (batch, head, tile of L
+        rows); x, dt, a_log, b, c read and y written once"""
         Bs, Ss, _, Ps = x.shape
         Ns = b.shape[-1]
+        Lt = min(L, SCAN_TILE_ROWS)   # the rows of the kernels' sub-chunks
         return dict(
-            run=run, tol=SSM_TOL,
-            ops=2 * L * (L * Ns + L * Ps + 2 * Ns * Ps) * Bs * H * (Ss // L),
+            run=run, tol=tol, peak=peak,
+            ops=2 * Lt * (Lt * Ns + Lt * Ps + 2 * Ns * Ps) * Bs * H
+            * (Ss // Lt),
             bytes=2 * x.numel() * x.element_size() + Bs * Ss * H * 4 + H * 4
             + 2 * b.numel() * b.element_size(),
             library=None, shape=shape)
@@ -634,12 +725,17 @@ def _lm_kernel_phase(torch, dev):
                              dict(B=B, S=S, H=Hs, P=P, N=N, chunk=L)),
         "ssm_scan@train": ssm_case(ssm_train, xm, bm, Lm, Hm,
                                    dict(B=Bm, S=Sm, H=Hm, P=Pm, N=Nm,
-                                        chunk=Lm))}
+                                        chunk=Lm)),
+        "ssm_scan@float32": ssm_case(ssm_f32, xf, bf, F32_CHUNK, Hm,
+                                     dict(B=Bm, S=Sm, H=Hm, P=Pm, N=Nm,
+                                          chunk=F32_CHUNK, dtype="float32"),
+                                     tol=F32_SSM_TOL, peak=PEAK_FP32_FLOPS)}
     out = {}
     for name, cs in cases.items():
         kernel, plain = cs["run"]
         err = _max_err(kernel(), plain(), cs["tol"])
-        ops_ms = cs["ops"] / PEAK_BF16_FLOPS * 1e3
+        peak = cs.get("peak", PEAK_BF16_FLOPS)
+        ops_ms = cs["ops"] / peak * 1e3
         bytes_ms = cs["bytes"] / PEAK_HBM_BYTES_PER_S * 1e3
         r = out[name] = {
             "max_abs_err": err, "ms": _time_ms(torch, kernel, 20),
@@ -654,11 +750,12 @@ def _lm_kernel_phase(torch, dev):
             f"{r['library_ms']:.4f} ms (scaled_dot_product_attention)"
         gc.collect()
         torch.cuda.empty_cache()
-        _phase(9, "lm kernels", f"{name} at {cs['shape']}, bf16: max abs err "
-               f"{err:.4g} (limit {cs['tol']} rel + abs); kernel "
+        dtype = cs["shape"].get("dtype", "bf16")
+        _phase(9, "lm kernels", f"{name} at {cs['shape']}, {dtype}: max abs "
+               f"err {err:.4g} (limit {cs['tol']} rel + abs); kernel "
                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
                f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {cs['ops']:.4g} "
-               f"flops at {PEAK_BF16_FLOPS:.3g}/s, {cs['bytes']:.4g} B at "
+               f"flops at {peak:.3g}/s, {cs['bytes']:.4g} B at "
                f"{PEAK_HBM_BYTES_PER_S:.3g} B/s, H100 SXM data sheet); "
                f"library {lib}")
     return out
@@ -954,44 +1051,61 @@ def _lm_bwd_kernel_phase(torch, dev):
     out = {}
 
     # ---- ssm_scan_bwd: mamba2-780m, batch 8 x 2,048 ----------------------
+    # bf16 in the training phase's chunks, and the float32 CUDA-core
+    # kernel in chunks of 128 (two tiles a chunk)
     cfg = get_config(TRAIN_SSM_ARCH)
-    B, S, L = TRAIN_SSM_BATCH, TRAIN_SEQ, tuning.KNOBS.ssd_chunk
+    B, S = TRAIN_SSM_BATCH, TRAIN_SEQ
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    x = torch.randn((B, S, H, P), generator=g, device=dev).to(bf16)
-    dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=g, device=dev)
-    a_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32,
-                                   device=dev))
-    b, c = (torch.randn((B, S, N), generator=g, device=dev).to(bf16)
-            for _ in range(2))
-    dy = torch.randn((B, S, H, P), generator=g, device=dev).to(bf16)
-    ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
-    y = kref.ssm_scan_ref(*ins, chunk=L)
+    for name, dtype, L, tol in (
+            ("ssm_scan_bwd", bf16, tuning.KNOBS.ssd_chunk, SSM_BWD_TOL),
+            ("ssm_scan_bwd@float32", torch.float32, F32_CHUNK,
+             F32_SSM_TOL)):
+        # the float32 case draws from its own generator, so that the later
+        # phases' inputs stay those of earlier runs
+        gen = g if dtype == bf16 else \
+            torch.Generator(device=dev).manual_seed(121)
+        x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+        dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=gen, device=dev)
+        a_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                       device=dev))
+        b, c = (torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        dy = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+        ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
+        y = kref.ssm_scan_ref(*ins, chunk=L)
 
-    def kernel():
-        return kops.ssm_scan_bwd(x, dt, a_log, b, c, dy, chunk=L)
+        def kernel():
+            return kops.ssm_scan_bwd(x, dt, a_log, b, c, dy, chunk=L)
 
-    def plain():
-        return torch.autograd.grad(y, ins, dy, retain_graph=True)
+        def plain():
+            return torch.autograd.grad(y, ins, dy, retain_graph=True)
 
-    errs = [_grad_err(a, w, SSM_BWD_TOL, f"ssm_scan_bwd d{n}")
-            for n, a, w in zip(("x", "dt", "a_log", "b", "c"), kernel(),
-                               plain())]
-    # multiply-adds per (batch, head, chunk): the recomputed state, the
-    # lower triangles of Q and A, the terms of dc, db, dx and dstate
-    ops = 2 * (5 * L * P * N + L * L * (3 * N + 2 * P) // 2) * B * H * (S // L)
-    n_bytes = 3 * x.numel() * 2 + 2 * dt.numel() * 4 + 2 * H * 4 \
-        + 4 * b.numel() * 2
-    bound_ms, bound_by = _bound(ops, n_bytes, PEAK_BF16_FLOPS)
-    out["ssm_scan_bwd"] = {
-        "max_abs_err": max(e for e, _ in errs),
-        "max_rel_err": max(r for _, r in errs),
-        "ms": _time_ms(torch, kernel, 5), "plain_ms": _time_ms(torch, plain, 3),
-        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-        "ops": ops, "bytes": n_bytes,
-        "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": L}}
-    del x, dt, b, c, dy, ins, y
-    gc.collect()
-    torch.cuda.empty_cache()
+        errs = [_grad_err(a, w, tol, f"{name} d{n}")
+                for n, a, w in zip(("x", "dt", "a_log", "b", "c"), kernel(),
+                                   plain())]
+        # multiply-adds per (batch, head, tile of Lt rows): the recomputed
+        # state, the lower triangles of Q and A, the terms of dc, db, dx
+        # and dstate
+        Lt = min(L, SCAN_TILE_ROWS)
+        ops = 2 * (5 * Lt * P * N + Lt * Lt * (3 * N + 2 * P) // 2) * B * H \
+            * (S // Lt)
+        esz = x.element_size()
+        n_bytes = 3 * x.numel() * esz + 2 * dt.numel() * 4 + 2 * H * 4 \
+            + 4 * b.numel() * esz
+        peak = PEAK_BF16_FLOPS if dtype == bf16 else PEAK_FP32_FLOPS
+        bound_ms, bound_by = _bound(ops, n_bytes, peak)
+        out[name] = {
+            "max_abs_err": max(e for e, _ in errs),
+            "max_rel_err": max(r for _, r in errs), "tol": tol,
+            "ms": _time_ms(torch, kernel, 5),
+            "plain_ms": _time_ms(torch, plain, 3),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ops": ops, "bytes": n_bytes, "peak": peak,
+            "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": L,
+                      "dtype": str(dtype).replace("torch.", "")}}
+        del x, dt, b, c, dy, ins, y
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # ---- flash_attention_bwd: starcoder2-15b, batch 4 x 2,048 ------------
     cfg = get_config(TRAIN_ATTN_ARCH)
@@ -1035,7 +1149,7 @@ def _lm_bwd_kernel_phase(torch, dev):
         "ms": _time_ms(torch, kernel, 5), "plain_ms": _time_ms(torch, plain, 3),
         "library_ms": _time_ms(torch, library, 10),
         "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
-        "bytes": n_bytes,
+        "bytes": n_bytes, "peak": PEAK_BF16_FLOPS, "tol": FLASH_BWD_TOL,
         "fwd_bwd_ms": _time_ms(torch, kernel_fwd_bwd, 5),
         "library_fwd_bwd_ms": _time_ms(torch, library_fwd_bwd, 10),
         "shape": {"B": B, "H": H, "S": S, "T": S, "D": D, "causal": True}}
@@ -1049,13 +1163,14 @@ def _lm_bwd_kernel_phase(torch, dev):
             f"scaled_dot_product_attention; forward + backward: kernels " \
             f"{r['fwd_bwd_ms']:.4f} ms, library " \
             f"{r['library_fwd_bwd_ms']:.4f} ms)"
-        _phase(12, "lm backward kernels", f"{name} at {r['shape']}, bf16: "
+        _phase(12, "lm backward kernels", f"{name} at {r['shape']}: "
                f"max abs err {r['max_abs_err']:.4g}, at most "
-               f"{r['max_rel_err']:.4g} of a gradient's largest magnitude; "
+               f"{r['max_rel_err']:.4g} of a gradient's largest magnitude "
+               f"(limit {r['tol']}); "
                f"kernel {r['ms']:.4f} ms, plain backward "
                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                f"({r['bound_by']}: {r['ops']:.4g} flops at "
-               f"{PEAK_BF16_FLOPS:.3g}/s, {r['bytes']:.4g} B at "
+               f"{r['peak']:.3g}/s, {r['bytes']:.4g} B at "
                f"{PEAK_HBM_BYTES_PER_S:.3g} B/s, H100 SXM data sheet); "
                f"library {lib}")
     return out
@@ -1087,8 +1202,12 @@ def _horner_phase(torch, dev):
         n_bytes = 2 * x.numel() * x.element_size() + cf.numel() * 4
         bound_ms, bound_by = _bound(2 * KAN_DEGREE * x.numel(), n_bytes,
                                     PEAK_FP32_FLOPS)
+        dev_names, dev_ms, sessions = _device_ms(
+            torch, lambda: kops.horner(x, cf), 20, "horner")
         out[k] = {"max_abs_err": 0.0,
                   "ms": _time_ms(torch, lambda: kops.horner(x, cf), 20),
+                  "device_ms": dev_ms, "device_ms_by_name": dev_names,
+                  "profiler_sessions": sessions,
                   "plain_ms": _time_ms(torch, lambda: kref.horner_ref(x, cf),
                                        5),
                   "library_ms": None, "bound_ms": bound_ms,
@@ -1096,7 +1215,9 @@ def _horner_phase(torch, dev):
         r = out[k]
         _phase(13, "horner", f"{k}, {KAN_ELEMENTS} elements (784 x 512 x "
                f"64), degree {KAN_DEGREE}: bit for bit the plain version; "
-               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+               f"kernel {r['ms']:.4f} ms (CUDA events), "
+               f"{_device_text(dev_ms, dev_names, sessions)}, "
+               f"plain {r['plain_ms']:.4f} ms, "
                f"bound {r['bound_ms']:.4f} ms ({bound_by}: {n_bytes:.4g} B at "
                f"{PEAK_HBM_BYTES_PER_S:.3g} B/s, H100 SXM data sheet); "
                f"library none (no single PyTorch call computes it); "

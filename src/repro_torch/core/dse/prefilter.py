@@ -70,7 +70,10 @@ def pack_launches(cfgs: Dict[str, Dict[str, np.ndarray]],
     """The kernel inputs for one workload: one ``(rows, tiles, ops)``
     triple per distinct (precision, act_sparsity, w_sparsity) group of
     active ops, ``tiles`` (B, MAX_TILES, 10) and ``ops`` (len(rows), 7)
-    float32 on ``device``; ``rows`` indexes the op table."""
+    float32 on ``device``; ``rows`` indexes the op table.  A group's rows
+    are ordered by op class (stable), so that the kernel's warps, which
+    take consecutive ops, rarely mix classes; every output lands at its
+    row, so the order changes no result."""
     device = resolve_device(device)
     cm = cost_model(calib, device)
     T, chip = placed if placed is not None else place_configs(cfgs, device)
@@ -84,6 +87,7 @@ def pack_launches(cfgs: Dict[str, Dict[str, np.ndarray]],
     out = []
     for g, (prec, act_sp, w_sp) in enumerate(groups):
         sel = rows[inverse == g]
+        sel = sel[np.argsort(ws["op_cls"][sel], kind="stable")]
         prec = float(prec)
         tile_cols = [
             T["exists"], T["num_macs"], T["dsp_lanes"], T["clock_hz"],

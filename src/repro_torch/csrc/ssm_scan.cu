@@ -27,15 +27,28 @@
 //
 // float32: the CUDA cores (ssm_scan_kernel): one block of 256 threads per
 // (batch, head).  The float32 (P, N) state stays in shared memory while
-// the block walks the chunks of L rows in order.  For each chunk the
-// block stages x (L x P), b and c (L x N) and dt, takes seg = cumsum(dt
-// a) over the chunk, and builds the decay-weighted (L x L) matrix
+// the block walks the chunks of L rows in order, each chunk as tiles of
+// at most 64 rows (ssm::TileRows, as the bf16 stages cut it: tile tau is
+// chunk tau / T, part tau % T, T = ceil(L / 64)).  For each tile of len
+// rows the block stages x (len x P), b and c (len x N) and dt, takes seg
+// = cumsum(dt a) over the tile, and builds the decay-weighted (len x len)
+// matrix
 //   W[i][j] = (c_i . b_j) exp(seg_i - seg_j) dt_j   for j <= i, else 0
 // (the mask is applied before the exp, as ssm_scan.py does).  Then
-//   y_i = sum_j W[i][j] x_j + exp(seg_i) (state c_i)          (L x P)
-//   state <- exp(seg_L) state + sum_j x_j exp(seg_L - seg_j) dt_j b_j^T.
-// Rows of b, c and the state are padded to N + 1 floats so that the
-// threads of a warp read distinct banks.
+//   y_i = sum_j W[i][j] x_j + exp(seg_i) (state c_i)        (len x P)
+//   state <- exp(seg_len) state + sum_j x_j exp(seg_len - seg_j) dt_j b_j^T.
+// Design: each tile is its own sub-chunk, with the state carried across
+// the tiles of a chunk as across chunks.  The reference keeps a chunk's
+// quadratic term over all its rows; the sub-chunks compute the same
+// function in another summation order (the chunk-invariance that
+// tests/test_kernels.py holds at 1e-4), and need no (L x L) matrix and no
+// decays across tiles, so shared memory no longer grows with L.  (Blocked
+// W over the tile pairs of a chunk would keep the reference's order at
+// the cost of T (T + 1) / 2 tile products per chunk.)  Shared memory is
+// smem_bytes(min(L, 64), P, N): 132,608 B at (L 128, P 64, N 128), where
+// whole chunks took 264,960 B (above a block's 232,448 B).  Rows of b, c
+// and the state are padded to N + 1 floats so that the threads of a warp
+// read distinct banks.
 //
 // What bounds it on an H100: at the serving path's shapes (B 4, S 512,
 // H 128, P 64, N 16, L 64) the function needs 3.8e9 flops (2 L (L N +
@@ -79,6 +92,7 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
+// shared memory of ssm_scan_kernel for tiles of at most L rows
 size_t smem_bytes(int L, int P, int N) {
   const size_t NP = N + 1;
   return sizeof(float) *
@@ -96,15 +110,16 @@ ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const T* __restrict__ c, T* __restrict__ y, int S, int H,
                 int P, int N, int L) {
   const int NP = N + 1;
+  const int Lt = min(L, ssm::kRows);  // the longest tile
   extern __shared__ float smem[];
   float* xs = smem;
-  float* bs = xs + L * P;
-  float* cs = bs + L * NP;
-  float* ws = cs + L * NP;
-  float* st = ws + L * L;
+  float* bs = xs + Lt * P;
+  float* cs = bs + Lt * NP;
+  float* ws = cs + Lt * NP;
+  float* st = ws + Lt * Lt;
   float* dts = st + P * NP;
-  float* seg = dts + L;
-  float* wj = seg + L;
+  float* seg = dts + Lt;
+  float* wj = seg + Lt;
 
   const int tid = threadIdx.x;
   const int bi = blockIdx.x / H;
@@ -114,33 +129,36 @@ ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int idx = tid; idx < P * N; idx += kThreads)
     st[(idx / N) * NP + idx % N] = 0.f;
 
-  for (int s0 = 0; s0 < S; s0 += L) {
-    __syncthreads();  // the last chunk's state update is done
-    const size_t row0 = static_cast<size_t>(bi) * S + s0;
-    for (int idx = tid; idx < L * P; idx += kThreads) {
+  const int nt = (S / L) * ((L + ssm::kRows - 1) / ssm::kRows);
+  for (int tau = 0; tau < nt; ++tau) {
+    const ssm::TileRows tr(tau, L);
+    const int len = tr.len;
+    __syncthreads();  // the last tile's state update is done
+    const size_t row0 = static_cast<size_t>(bi) * S + tr.row0;
+    for (int idx = tid; idx < len * P; idx += kThreads) {
       const int l = idx / P, p = idx % P;
       xs[idx] = to_f32(x[((row0 + l) * H + h) * P + p]);
     }
-    for (int idx = tid; idx < L * N; idx += kThreads) {
+    for (int idx = tid; idx < len * N; idx += kThreads) {
       const int l = idx / N, n = idx % N;
       bs[l * NP + n] = to_f32(b[(row0 + l) * N + n]);
       cs[l * NP + n] = to_f32(c[(row0 + l) * N + n]);
     }
-    for (int l = tid; l < L; l += kThreads) dts[l] = dt[(row0 + l) * H + h];
+    for (int l = tid; l < len; l += kThreads) dts[l] = dt[(row0 + l) * H + h];
     __syncthreads();
     if (tid == 0) {
       float run = 0.f;
-      for (int l = 0; l < L; ++l) {
+      for (int l = 0; l < len; ++l) {
         run += dts[l] * a;
         seg[l] = run;
       }
     }
     __syncthreads();
-    const float seg_last = seg[L - 1];
-    for (int l = tid; l < L; l += kThreads)
+    const float seg_last = seg[len - 1];
+    for (int l = tid; l < len; l += kThreads)
       wj[l] = expf(seg_last - seg[l]) * dts[l];
-    for (int idx = tid; idx < L * L; idx += kThreads) {
-      const int i = idx / L, j = idx % L;
+    for (int idx = tid; idx < len * len; idx += kThreads) {
+      const int i = idx / len, j = idx % len;
       float w = 0.f;
       if (j <= i) {
         float cb = 0.f;
@@ -150,10 +168,10 @@ ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       ws[idx] = w;
     }
     __syncthreads();
-    for (int idx = tid; idx < L * P; idx += kThreads) {
+    for (int idx = tid; idx < len * P; idx += kThreads) {
       const int i = idx / P, p = idx % P;
       float yi = 0.f;
-      for (int j = 0; j <= i; ++j) yi = fmaf(ws[i * L + j], xs[j * P + p], yi);
+      for (int j = 0; j <= i; ++j) yi = fmaf(ws[i * len + j], xs[j * P + p], yi);
       float ci = 0.f;
       for (int n = 0; n < N; ++n) ci = fmaf(cs[i * NP + n], st[p * NP + n], ci);
       store(y + ((row0 + i) * H + h) * P + p, yi + expf(seg[i]) * ci);
@@ -163,7 +181,7 @@ ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int idx = tid; idx < P * N; idx += kThreads) {
       const int p = idx / N, n = idx % N;
       float u = 0.f;
-      for (int j = 0; j < L; ++j)
+      for (int j = 0; j < len; ++j)
         u = fmaf(xs[j * P + p] * wj[j], bs[j * NP + n], u);
       st[p * NP + n] = dec * st[p * NP + n] + u;
     }
@@ -354,7 +372,7 @@ template <typename T>
 int launch(const void* x, const float* dt, const float* a_log, const void* b,
            const void* c, void* y, int B, int S, int H, int P, int N, int L,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(L, P, N);
+  const size_t smem = smem_bytes(L < ssm::kRows ? L : ssm::kRows, P, N);
   const cudaError_t e = cudaFuncSetAttribute(
       ssm_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -373,7 +391,7 @@ extern "C" {
 // non-zero, else float32); dt (B, S, H) and a_log (H,) float32; all
 // contiguous device pointers.  S is a multiple of the chunk length L.
 // bfloat16: the tensor cores; P is 16, 32 or 64, N 16, 32, 64 or 128,
-// L at most 128; x, b and c 16-byte aligned (TMA); states (B H, n_tiles,
+// any L; x, b and c 16-byte aligned (TMA); states (B H, n_tiles,
 // P, N) and decay (B H, n_tiles) float32 are scratch, n_tiles = S / L
 // times ceil(L / 64).  float32: the CUDA cores; states and decay unused.
 int ssm_scan_launch(const void* x, const float* dt, const float* a_log,
@@ -385,7 +403,6 @@ int ssm_scan_launch(const void* x, const float* dt, const float* a_log,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
     return launch<float>(x, dt, a_log, b, c, y, B, S, H, P, N, L, st);
-  if (L > ssm::kMaxChunk) return static_cast<int>(cudaErrorInvalidValue);
   const ForwardTc f{x, b, c, dt, a_log, y, states, decay, B, S, H, L, st};
   return static_cast<int>(ssm::dispatch(P, N, f));
 }

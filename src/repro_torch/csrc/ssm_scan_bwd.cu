@@ -26,13 +26,16 @@
 // as two bf16 tiles, Am^T as two bf16 tiles), two blocks an SM.
 //
 // float32: the CUDA cores (ssm_scan_bwd_kernel).  One block of 256
-// threads per (batch, head) does two passes.  The first walks the chunks
-// forward and writes the state entering each chunk to a float32 scratch
-// (B H, n_chunks, P, N).  The second walks the chunks in reverse with
-// dstate (P, N), the gradient of the state leaving the chunk, in shared
-// memory.  Per chunk it stages x, dy (rows padded to P + 1), b, c (N + 1)
-// and the entering state as float32, builds Q[i][j] = (c_i . b_j)
-// exp(seg_i - seg_j) and A[i][j] = dy_i . x_j (j <= i), and from them
+// threads per (batch, head) does two passes over the tiles of at most 64
+// rows that the forward walks (ssm_scan.cu: each tile its own sub-chunk,
+// the same function as whole chunks in another summation order).  The
+// first walks the tiles forward and writes the state entering each tile
+// to a float32 scratch (B H, n_tiles, P, N).  The second walks the tiles
+// in reverse with dstate (P, N), the gradient of the state leaving the
+// tile, in shared memory.  Per tile of L <= 64 rows it stages x, dy (rows
+// padded to P + 1), b, c (N + 1) and the entering state as float32,
+// builds Q[i][j] = (c_i . b_j) exp(seg_i - seg_j) and A[i][j] = dy_i .
+// x_j (j <= i), and from them
 //   dc_i = sum_j A_ij exp(seg_i - seg_j) dt_j b_j + exp(seg_i) dy_i^T state
 //   db_j = sum_i A_ij exp(seg_i - seg_j) dt_j c_i
 //          + exp(seg_L - seg_j) dt_j dstate^T x_j
@@ -41,8 +44,11 @@
 // dseg into ddt (times a) and da (times dt), and
 //   dstate <- exp(seg_L) dstate + sum_i exp(seg_i) dy_i c_i^T.
 // Every block adds its share of db, dc (into (B, S, N) float32) and d
-// a_log (into (H,) float32) with atomics.  Shared memory: 200.7 KB at
-// mamba2-780m's N 128, P 64, chunk 64 (one block per SM).
+// a_log (into (H,) float32) with atomics.  Shared memory is
+// bwd_smem_bytes(min(L, 64), P, N) and does not grow with the chunk:
+// 200,736 B at N 128, P 64 for any chunk of 64 rows or more (one block
+// per SM), where whole chunks of 128 rows took 400,928 B (above a block's
+// 232,448 B).
 //
 // The atomics of both paths add the heads' shares in an order that
 // changes from run to run.
@@ -88,10 +94,11 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
+// shared memory of ssm_scan_bwd_kernel for tiles of at most L rows
 size_t bwd_smem_bytes(int L, int P, int N) {
   const size_t PP = P + 1, NP = N + 1, LP = L + 1;
-  return sizeof(float) * (2 * L * PP           // x, dy chunk
-                          + 2 * L * NP         // b, c chunk
+  return sizeof(float) * (2 * L * PP           // x, dy tile
+                          + 2 * L * NP         // b, c tile
                           + 2 * P * NP         // entering state, dstate
                           + 2 * L * LP         // A, Q
                           + 8 * static_cast<size_t>(L)  // per-row vectors
@@ -112,115 +119,120 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                     float* __restrict__ da, float* __restrict__ db,
                     float* __restrict__ dc, float* __restrict__ states,
                     int S, int H, int P, int N, int L) {
-  const int PP = P + 1, NP = N + 1, LP = L + 1;
+  const int Lt = min(L, ssm::kRows);  // the longest tile
+  const int PP = P + 1, NP = N + 1, LP = Lt + 1;
   constexpr int kWarps = kThreads / 32;
   extern __shared__ float smem[];
   float* xs = smem;
-  float* dys = xs + L * PP;
-  float* bs = dys + L * PP;
-  float* cs = bs + L * NP;
-  float* st = cs + L * NP;     // state entering the chunk
+  float* dys = xs + Lt * PP;
+  float* bs = dys + Lt * PP;
+  float* cs = bs + Lt * NP;
+  float* st = cs + Lt * NP;    // state entering the tile
   float* ds = st + P * NP;     // gradient of the state leaving it
   float* am = ds + P * NP;     // A, then A exp(seg_i - seg_j) dt_j
-  float* qm = am + L * LP;     // Q, then Q dt_j
-  float* dts = qm + L * LP;
-  float* seg = dts + L;
-  float* ex = seg + L;         // exp(seg_i)
-  float* u = ex + L;           // exp(seg_L - seg_j) dt_j
-  float* dseg = u + L;         // row terms of d seg_i
-  float* cg = dseg + L;        // sum_i A_ij Q_ij (d dt_j, intra, direct)
-  float* sv = cg + L;          // d dt_j from the leaving state, direct
-  float* kv = sv + L;          // sv_j dt_j (d seg_L += sum, d seg_j -= each)
-  float* red = kv + L;         // per-warp partial sums
+  float* qm = am + Lt * LP;    // Q, then Q dt_j
+  float* dts = qm + Lt * LP;
+  float* seg = dts + Lt;
+  float* ex = seg + Lt;        // exp(seg_i)
+  float* u = ex + Lt;          // exp(seg_L - seg_j) dt_j
+  float* dseg = u + Lt;        // row terms of d seg_i
+  float* cg = dseg + Lt;       // sum_i A_ij Q_ij (d dt_j, intra, direct)
+  float* sv = cg + Lt;         // d dt_j from the leaving state, direct
+  float* kv = sv + Lt;         // sv_j dt_j (d seg_L += sum, d seg_j -= each)
+  float* red = kv + Lt;        // per-warp partial sums
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int bi = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  const int nc = S / L;
+  const int nt = (S / L) * ((L + ssm::kRows - 1) / ssm::kRows);
   const float a = -expf(a_log[h]);
-  float* sts = states + static_cast<size_t>(blockIdx.x) * nc * P * N;
+  float* sts = states + static_cast<size_t>(blockIdx.x) * nt * P * N;
 
-  // ---- pass 1: the state entering every chunk ----------------------------
+  // ---- pass 1: the state entering every tile -----------------------------
   for (int idx = tid; idx < P * N; idx += kThreads)
     st[(idx / N) * NP + idx % N] = 0.f;
-  for (int k = 0; k < nc; ++k) {
+  for (int k = 0; k < nt; ++k) {
     __syncthreads();
-    const size_t row0 = static_cast<size_t>(bi) * S + static_cast<size_t>(k) * L;
+    const ssm::TileRows tr(k, L);
+    const int len = tr.len;
+    const size_t row0 = static_cast<size_t>(bi) * S + tr.row0;
     for (int idx = tid; idx < P * N; idx += kThreads)
       sts[static_cast<size_t>(k) * P * N + idx] = st[(idx / N) * NP + idx % N];
-    if (k == nc - 1) break;
-    for (int idx = tid; idx < L * P; idx += kThreads) {
+    if (k == nt - 1) break;
+    for (int idx = tid; idx < len * P; idx += kThreads) {
       const int l = idx / P, pp = idx % P;
       xs[l * PP + pp] = to_f32(x[((row0 + l) * H + h) * P + pp]);
     }
-    for (int idx = tid; idx < L * N; idx += kThreads) {
+    for (int idx = tid; idx < len * N; idx += kThreads) {
       const int l = idx / N, n = idx % N;
       bs[l * NP + n] = to_f32(b[(row0 + l) * N + n]);
     }
-    for (int l = tid; l < L; l += kThreads) dts[l] = dt[(row0 + l) * H + h];
+    for (int l = tid; l < len; l += kThreads) dts[l] = dt[(row0 + l) * H + h];
     __syncthreads();
     if (tid == 0) {
       float run = 0.f;
-      for (int l = 0; l < L; ++l) {
+      for (int l = 0; l < len; ++l) {
         run += dts[l] * a;
         seg[l] = run;
       }
     }
     __syncthreads();
-    for (int l = tid; l < L; l += kThreads)
-      u[l] = expf(seg[L - 1] - seg[l]) * dts[l];
+    for (int l = tid; l < len; l += kThreads)
+      u[l] = expf(seg[len - 1] - seg[l]) * dts[l];
     __syncthreads();
-    const float dec = expf(seg[L - 1]);
+    const float dec = expf(seg[len - 1]);
     for (int idx = tid; idx < P * N; idx += kThreads) {
       const int pp = idx / N, n = idx % N;
       float acc = 0.f;
-      for (int j = 0; j < L; ++j)
+      for (int j = 0; j < len; ++j)
         acc = fmaf(xs[j * PP + pp] * u[j], bs[j * NP + n], acc);
       st[pp * NP + n] = dec * st[pp * NP + n] + acc;
     }
   }
   __syncthreads();  // pass 1's stores are visible to the whole block
 
-  // ---- pass 2: the chunks in reverse -------------------------------------
+  // ---- pass 2: the tiles in reverse --------------------------------------
   for (int idx = tid; idx < P * N; idx += kThreads)
     ds[(idx / N) * NP + idx % N] = 0.f;
   float da_acc = 0.f;  // thread 0's running sum of d a
-  for (int k = nc - 1; k >= 0; --k) {
-    __syncthreads();  // the last chunk's reads of every buffer are done
-    const size_t row0 = static_cast<size_t>(bi) * S + static_cast<size_t>(k) * L;
-    for (int idx = tid; idx < L * P; idx += kThreads) {
+  for (int k = nt - 1; k >= 0; --k) {
+    __syncthreads();  // the last tile's reads of every buffer are done
+    const ssm::TileRows tr(k, L);
+    const int len = tr.len;
+    const size_t row0 = static_cast<size_t>(bi) * S + tr.row0;
+    for (int idx = tid; idx < len * P; idx += kThreads) {
       const int l = idx / P, pp = idx % P;
       const size_t g = ((row0 + l) * H + h) * P + pp;
       xs[l * PP + pp] = to_f32(x[g]);
       dys[l * PP + pp] = to_f32(dy[g]);
     }
-    for (int idx = tid; idx < L * N; idx += kThreads) {
+    for (int idx = tid; idx < len * N; idx += kThreads) {
       const int l = idx / N, n = idx % N;
       bs[l * NP + n] = to_f32(b[(row0 + l) * N + n]);
       cs[l * NP + n] = to_f32(c[(row0 + l) * N + n]);
     }
     for (int idx = tid; idx < P * N; idx += kThreads)
       st[(idx / N) * NP + idx % N] = sts[static_cast<size_t>(k) * P * N + idx];
-    for (int l = tid; l < L; l += kThreads) dts[l] = dt[(row0 + l) * H + h];
+    for (int l = tid; l < len; l += kThreads) dts[l] = dt[(row0 + l) * H + h];
     __syncthreads();
     if (tid == 0) {
       float run = 0.f;
-      for (int l = 0; l < L; ++l) {
+      for (int l = 0; l < len; ++l) {
         run += dts[l] * a;
         seg[l] = run;
       }
     }
     __syncthreads();
-    const float seg_last = seg[L - 1];
-    for (int l = tid; l < L; l += kThreads) {
+    const float seg_last = seg[len - 1];
+    for (int l = tid; l < len; l += kThreads) {
       ex[l] = expf(seg[l]);
       u[l] = expf(seg_last - seg[l]) * dts[l];
     }
     // Q and A over the lower triangle
-    for (int idx = tid; idx < L * L; idx += kThreads) {
-      const int i = idx / L, j = idx % L;
+    for (int idx = tid; idx < len * len; idx += kThreads) {
+      const int i = idx / len, j = idx % len;
       float qv = 0.f, av = 0.f;
       if (j <= i) {
         for (int n = 0; n < N; ++n) qv = fmaf(cs[i * NP + n], bs[j * NP + n], qv);
@@ -233,20 +245,20 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
     __syncthreads();
     // row sums (d seg_i) and column sums (d dt_j, d seg_j) of A Q
-    if (tid < L) {
+    if (tid < len) {
       const int i = tid;
       float r = 0.f;
       for (int j = 0; j <= i; ++j) r = fmaf(am[i * LP + j] * qm[i * LP + j], dts[j], r);
       dseg[i] = r;
-    } else if (tid < 2 * L) {
-      const int j = tid - L;
+    } else if (tid < 2 * len) {
+      const int j = tid - len;
       float r = 0.f;
-      for (int i = j; i < L; ++i) r = fmaf(am[i * LP + j], qm[i * LP + j], r);
+      for (int i = j; i < len; ++i) r = fmaf(am[i * LP + j], qm[i * LP + j], r);
       cg[j] = r;
     }
     __syncthreads();
-    for (int idx = tid; idx < L * L; idx += kThreads) {
-      const int i = idx / L, j = idx % L;
+    for (int idx = tid; idx < len * len; idx += kThreads) {
+      const int i = idx / len, j = idx % len;
       if (j <= i) {
         am[i * LP + j] *= expf(seg[i] - seg[j]) * dts[j];
         qm[i * LP + j] *= dts[j];
@@ -254,7 +266,7 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
     __syncthreads();
     // dc (a warp per row i, lanes over n) and its share of d seg_i
-    for (int i = warp; i < L; i += kWarps) {
+    for (int i = warp; i < len; i += kWarps) {
       float part = 0.f;
       for (int n = lane; n < N; n += 32) {
         float intra = 0.f;
@@ -270,11 +282,11 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       if (lane == 0) dseg[i] += part;
     }
     // db (a warp per row j, lanes over n) and d dt_j from the leaving state
-    for (int j = warp; j < L; j += kWarps) {
+    for (int j = warp; j < len; j += kWarps) {
       float part = 0.f;
       for (int n = lane; n < N; n += 32) {
         float intra = 0.f;
-        for (int i = j; i < L; ++i) intra = fmaf(am[i * LP + j], cs[i * NP + n], intra);
+        for (int i = j; i < len; ++i) intra = fmaf(am[i * LP + j], cs[i * NP + n], intra);
         float tn = 0.f;
         for (int pp = 0; pp < P; ++pp)
           tn = fmaf(ds[pp * NP + n], xs[j * PP + pp], tn);
@@ -289,10 +301,10 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       }
     }
     // dx (a warp per row j, lanes over p)
-    for (int j = warp; j < L; j += kWarps) {
+    for (int j = warp; j < len; j += kWarps) {
       for (int pp = lane; pp < P; pp += 32) {
         float intra = 0.f;
-        for (int i = j; i < L; ++i) intra = fmaf(qm[i * LP + j], dys[i * PP + pp], intra);
+        for (int i = j; i < len; ++i) intra = fmaf(qm[i * LP + j], dys[i * PP + pp], intra);
         float inter = 0.f;
         for (int n = 0; n < N; ++n) inter = fmaf(ds[pp * NP + n], bs[j * NP + n], inter);
         store(dx + ((row0 + j) * H + h) * P + pp, intra + u[j] * inter);
@@ -310,11 +322,11 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
     __syncthreads();
     // dstate of the entering state
-    const float dec = ex[L - 1];
+    const float dec = ex[len - 1];
     for (int idx = tid; idx < P * N; idx += kThreads) {
       const int pp = idx / N, n = idx % N;
       float acc = 0.f;
-      for (int i = 0; i < L; ++i)
+      for (int i = 0; i < len; ++i)
         acc = fmaf(ex[i] * dys[i * PP + pp], cs[i * NP + n], acc);
       ds[pp * NP + n] = dec * ds[pp * NP + n] + acc;
     }
@@ -323,11 +335,11 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       float tot = 0.f;
       for (int w = 0; w < kWarps; ++w) tot += red[w];
       float last = dec * tot;
-      for (int j = 0; j < L; ++j) last += kv[j];
+      for (int j = 0; j < len; ++j) last += kv[j];
       float run = 0.f;
-      for (int j = L - 1; j >= 0; --j) {
+      for (int j = len - 1; j >= 0; --j) {
         float g = dseg[j] - cg[j] * dts[j] - kv[j];
-        if (j == L - 1) g += last;
+        if (j == len - 1) g += last;
         run += g;
         ddt[(row0 + j) * H + h] = cg[j] + sv[j] + a * run;
         da_acc = fmaf(run, dts[j], da_acc);
@@ -781,7 +793,7 @@ int launch_bwd(const void* x, const float* dt, const float* a_log,
                float* ddt, float* da, void* db, void* dc, float* db_acc,
                float* dc_acc, float* states, int B, int S, int H, int P,
                int N, int L, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(L, P, N);
+  const size_t smem = bwd_smem_bytes(L < ssm::kRows ? L : ssm::kRows, P, N);
   cudaError_t e = cudaFuncSetAttribute(
       ssm_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -810,8 +822,8 @@ extern "C" {
 // themselves.  bfloat16: the tensor cores, with ssm_scan_launch's limits
 // on P, N and L and its alignment; states and d_states (B H, n_tiles, P,
 // N) and decay (B H, n_tiles) float32 are scratch.  float32: the CUDA
-// cores; states (B H, S / L, P, N) float32 is scratch, d_states and decay
-// are unused.
+// cores; states (B H, n_tiles, P, N) float32 is scratch, d_states and
+// decay are unused.
 int ssm_scan_bwd_launch(const void* x, const float* dt, const float* a_log,
                         const void* b, const void* c, const void* dy,
                         void* dx, float* ddt, float* da, void* db, void* dc,
@@ -824,7 +836,6 @@ int ssm_scan_bwd_launch(const void* x, const float* dt, const float* a_log,
   if (!is_bf16)
     return launch_bwd<float>(x, dt, a_log, b, c, dy, dx, ddt, da, db, dc,
                              db_acc, dc_acc, states, B, S, H, P, N, L, st);
-  if (L > ssm::kMaxChunk) return static_cast<int>(cudaErrorInvalidValue);
   const BackwardTc f{x,      b,        c,     dy,     dt, a_log, dx,
                      ddt,    da,       db_acc, dc_acc, states, d_states,
                      decay,  B,        S,     H,      L,  st};

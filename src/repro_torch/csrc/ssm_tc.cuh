@@ -5,8 +5,8 @@
 // one product per chunk, the recurrence over chunks on the (P, N) states
 // only, the chunk outputs by products per chunk.
 //
-// Tiles.  A chunk of L rows is cut into tiles of at most 64 rows (wgmma's
-// M): one tile for L <= 64, two for L <= 128 (kMaxChunk).  Every stage
+// Tiles.  A chunk of L rows is cut into T = ceil(L / 64) tiles of at most
+// 64 rows (wgmma's M), every one full but the last; any L.  Every stage
 // works on tiles, with seg = cumsum(dt a) restarting at each tile, which
 // is the SSD algorithm with chunks of the tiles' lengths (the same
 // function; its float32 sums in another order).  A tile is brought in as
@@ -42,7 +42,6 @@
 namespace ssm {
 
 constexpr int kRows = tc::kRows;       // rows of a tile
-constexpr int kMaxChunk = 2 * kRows;   // longest chunk: two tiles
 constexpr int kThreads = tc::kWarpgroup;
 constexpr int kPassThreads = 256;
 

@@ -35,7 +35,11 @@ def horner_cuda(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"horner takes at most {MAX_COEFFS} coefficients, "
                          f"got {coeffs.shape[0]}")
     lib = _library()
-    y = torch.empty_like(x)
+    # y at x's offset from a 16-byte boundary, so that the kernel's vectors
+    # line up in both (x may be a view such as x[1:])
+    shift = x.data_ptr() % 16 // x.element_size()
+    y = torch.empty_like(x) if shift == 0 else torch.empty(
+        (x.shape[0] + shift,), dtype=x.dtype, device=x.device)[shift:]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.horner_launch(x.data_ptr(), coeffs.data_ptr(), y.data_ptr(),
                            x.shape[0], coeffs.shape[0],

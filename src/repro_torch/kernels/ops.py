@@ -200,12 +200,14 @@ class _SsmScan(torch.autograd.Function):
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, chunk: int = 64
+             b: torch.Tensor, c: torch.Tensor, chunk: int = 128
              ) -> torch.Tensor:
     """Mamba2 SSD chunked scan without the D-skip term.  x (B, S, H, P),
     dt (B, S, H) float32, a_log (H,) float32, b/c (B, S, N) of x's dtype
     -> (B, S, H, P) of x's dtype.  The chunk is ``min(chunk, S)`` and must
-    divide S, as in the reference.  Differentiable."""
+    divide S, as in the reference, whose entry point
+    (``repro/kernels/ops.py::ssm_scan``) defaults to 128 too.
+    Differentiable."""
     dev, chunk = _check_ssm(x, dt, a_log, b, c, chunk)
     if dev.type == "cpu":
         return ref.ssm_scan_ref(x, dt, a_log, b, c, chunk)
@@ -219,7 +221,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
-                 chunk: int = 64) -> Tuple[torch.Tensor, ...]:
+                 chunk: int = 128) -> Tuple[torch.Tensor, ...]:
     """The gradients (dx, ddt, da_log, db, dc) of ``ssm_scan`` at its
     inputs for the output gradient ``dy`` (as x), each of its input's
     dtype.  The plain version (CPU tensors) takes them by autograd of

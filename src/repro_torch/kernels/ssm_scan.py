@@ -6,10 +6,11 @@ The sources are ``repro_torch/csrc/ssm_scan.cu`` (the forward) and
 share in ``repro_torch/csrc/ssm_tc.cuh``; see their headers for what each
 computes, what bounds it and its tolerance against the plain version.
 bfloat16 runs on the tensor cores as chunk-parallel stages, float32 on the
-CUDA cores; the bfloat16 kernels take P in ``TC_HEAD_DIMS``, a state width
-N of at most ``TC_STATES[-1]`` (zero-padded here to the next of
-``TC_STATES``) and chunks of at most ``TC_MAX_CHUNK`` rows, and raise
-otherwise.  ``_build`` compiles and loads them at first use.
+CUDA cores; both cut a chunk into tiles of at most 64 rows and take any
+chunk that divides S.  The bfloat16 kernels take P in ``TC_HEAD_DIMS`` and
+a state width N of at most ``TC_STATES[-1]`` (zero-padded here to the next
+of ``TC_STATES``), and raise otherwise.  ``_build`` compiles and loads
+them at first use.
 """
 from __future__ import annotations
 
@@ -21,11 +22,11 @@ import torch
 from . import _build
 
 __all__ = ["ssm_scan_cuda", "ssm_scan_bwd_cuda", "TC_HEAD_DIMS",
-           "TC_STATES", "TC_MAX_CHUNK"]
+           "TC_STATES"]
 
 TC_HEAD_DIMS = (16, 32, 64)        # the bf16 kernels' instantiations of P
 TC_STATES = (16, 32, 64, 128)      # ... and of N
-TC_MAX_CHUNK = 128                 # two 64-row tiles a chunk
+TILE_ROWS = 64                     # a chunk's tiles, in both dtypes
 
 
 @functools.lru_cache(maxsize=1)
@@ -56,6 +57,11 @@ def _check_size(x: torch.Tensor) -> None:
         raise ValueError(f"ssm_scan shape too large: {tuple(x.shape)}")
 
 
+def _n_tiles(S: int, chunk: int) -> int:
+    """The tiles of one (batch, head): ceil(chunk / 64) a chunk."""
+    return (S // chunk) * -(-chunk // TILE_ROWS)
+
+
 def _tc_args(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, chunk: int,
              *aligned: torch.Tensor):
     """The bf16 kernels' limits; returns b, c zero-padded to the state
@@ -63,18 +69,17 @@ def _tc_args(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, chunk: int,
     gradient) and the number of 64-row tiles of one (batch, head)."""
     B, S, H, P = x.shape
     N = b.shape[-1]
-    if P not in TC_HEAD_DIMS or N > TC_STATES[-1] or chunk > TC_MAX_CHUNK:
+    if P not in TC_HEAD_DIMS or N > TC_STATES[-1]:
         raise ValueError(
-            f"ssm_scan in bfloat16 takes P in {TC_HEAD_DIMS}, N <= "
-            f"{TC_STATES[-1]} and chunks of at most {TC_MAX_CHUNK} rows; got "
-            f"P={P}, N={N}, chunk={chunk}")
+            f"ssm_scan in bfloat16 takes P in {TC_HEAD_DIMS} and N <= "
+            f"{TC_STATES[-1]}; got P={P}, N={N}")
     width = next(n for n in TC_STATES if n >= N)
     if width != N:
         b, c = (torch.nn.functional.pad(t, (0, width - N)) for t in (b, c))
     if any(t.data_ptr() % 16 for t in (x, b, c, *aligned)):
         raise ValueError("ssm_scan: bfloat16 tensors must start on a "
                          "16-byte boundary (TMA)")
-    return b, c, (S // chunk) * -(-chunk // 64)
+    return b, c, _n_tiles(S, chunk)
 
 
 def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -128,7 +133,8 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                             for _ in range(2))
         decay = torch.empty((B * H, nt), dtype=f32, device=dev)
     else:
-        states = torch.empty((B * H, S // chunk, P, N), dtype=f32, device=dev)
+        states = torch.empty((B * H, _n_tiles(S, chunk), P, N), dtype=f32,
+                             device=dev)
     width = b.shape[-1]
     dx = torch.empty_like(x)
     ddt = torch.empty((B, S, H), dtype=f32, device=dev)

@@ -112,6 +112,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # GQA / MQA / MHA causal self-attention with an optional KV cache
 # =============================================================================
 
+# queries above this many, in multiples of it, take the reference's blocked
+# path (repro/models/layers.py::_sdpa), which the flash kernel replaces
+_Q_CHUNK = 512
+
+
 def _sdpa_direct(q, k, v, causal: bool, q_pos=None, kv_len=None):
     """q: (B,S,H,hd), k/v: (B,T,Hkv,hd) with GQA broadcast.
 
@@ -144,10 +149,11 @@ def _sdpa_direct(q, k, v, causal: bool, q_pos=None, kv_len=None):
 
 def _causal_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   ) -> torch.Tensor:
-    """Causal self-attention of a whole prompt through the flash kernel.
-    q: (B,S,H,hd), k/v: (B,S,Hkv,hd).  The reference groups query heads
-    as ``q.reshape(B, S, Hkv, g, hd)``, so query head h reads kv head
-    h // g: ``repeat_interleave``, not ``repeat``."""
+    """Causal attention through the flash kernel.  q: (B,S,H,hd), k/v:
+    (B,T,Hkv,hd) with T >= S: query i sits at position T - S + i and sees
+    the keys up to it (a whole prompt when T = S).  The reference groups
+    query heads as ``q.reshape(B, S, Hkv, g, hd)``, so query head h reads
+    kv head h // g: ``repeat_interleave``, not ``repeat``."""
     B, S, H, hd = q.shape
     g = H // k.shape[2]
     qh = q.permute(0, 2, 1, 3).contiguous()
@@ -174,13 +180,19 @@ class Attention(nn.Module):
                 cache: Optional[Cache] = None):
         """Causal self-attention.  Returns (out, cache).
 
-        ``cache`` = {"k": (B,T,Hkv,hd), "v": ..., "len": (B,)}.  With more
-        than one token the call is a prefill into an empty cache (as the
-        serving steps make it, at positions 0..S-1): the kernel attends
-        causally over the S new keys, which is what the reference's mask
-        over the whole cache leaves.  One token is a decode step: its k, v
-        are written at row 0's ``len`` for every row (as in the
-        reference) and attention spans each row's ``len + 1`` entries.
+        ``cache`` = {"k": (B,T,Hkv,hd), "v": ..., "len": (B,)}.  The S new
+        tokens' k, v are written at row 0's ``len`` for every row (clamped
+        into range, as the reference's ``dynamic_update_slice``) and ``len``
+        rises by S.  A prefill into an empty cache (S > 1, every ``len`` 0,
+        as the serving steps make it, at positions 0..S-1) attends causally
+        over the S new keys through the kernel, which is what the
+        reference's mask over the whole cache leaves.  Otherwise queries
+        attend over each row's first ``len + S`` entries up to their
+        positions, routed as the reference's ``_sdpa`` routes them: S
+        above ``_Q_CHUNK`` and a multiple of it takes the flash kernel
+        over the first ``len[0] + S`` rows (causal offset ``len[0]``) when
+        every row's ``len`` and positions agree with that; everything
+        else takes ``_sdpa_direct``.
         """
         cfg = self.cfg
         B, S, _ = x.shape
@@ -192,11 +204,7 @@ class Attention(nn.Module):
         k = rope(k, positions, cfg.rope_theta)
         if cache is None:
             return self.o(_causal_flash(q, k, v)), None
-        if S > 1:
-            if bool((cache["len"] != 0).any()):
-                raise NotImplementedError(
-                    "a multi-token step against a filled cache is not "
-                    "ported; prefill starts from an empty cache")
+        if S > 1 and not bool((cache["len"] != 0).any()):
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
             cache["len"] += S
@@ -208,6 +216,16 @@ class Attention(nn.Module):
         cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
         cache["len"] += S
+        if S > _Q_CHUNK and S % _Q_CHUNK == 0 \
+                and q.dtype == cache["k"].dtype:
+            end = int(cache["len"][0])
+            # the kernel's causal offset is end - S: an unclamped write,
+            # and every row's queries at the rows written
+            if int(start) == end - S and bool((cache["len"] == end).all()) \
+                    and bool((positions == rows).all()):
+                out = _causal_flash(q, cache["k"][:, :end],
+                                    cache["v"][:, :end])
+                return self.o(out), cache
         out = _sdpa_direct(q, cache["k"], cache["v"], causal=True,
                            q_pos=positions, kv_len=cache["len"])
         return self.o(out), cache

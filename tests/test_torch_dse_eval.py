@@ -126,6 +126,27 @@ def test_roofline_bounds_packing(wname):
     assert np.isfinite(got[:, active, 0]).any()
 
 
+@pytest.mark.parametrize("wname", ["kan", "gnn_gat", "resnet50_int8"])
+def test_roofline_bounds_class_order_changes_nothing(wname):
+    """pack_launches orders each launch's rows by op class (for the
+    kernel's warps); roofline_bounds scatters by row, so it equals, bit for
+    bit, the bound of launches in row order (the packing before the
+    reorder)."""
+    g = random_genomes(np.random.default_rng(5), 10)
+    cfgs = P_engine.genomes_to_configs(g)
+    ws = P_engine.prepared_workload(wname)
+    want = np.zeros((len(g), len(ws["op_type"]), 2), np.float32)
+    for rows, tiles, ops in pack_launches(cfgs, ws, device="cpu"):
+        cls = ops[:, 0].numpy()
+        assert (np.diff(cls) >= 0).all()
+        assert np.array_equal(cls, ws["op_cls"][rows])
+        order = np.argsort(rows)
+        want[:, rows[order]] = P.dse_eval_ref(
+            tiles, ops[torch.from_numpy(order)]).numpy()
+    got = roofline_bounds(cfgs, ws, device="cpu").numpy()
+    assert np.array_equal(got, want)
+
+
 def test_wrapper_checks_inputs():
     t = torch.zeros((2, 3, R.TILE_FIELDS))
     o = torch.zeros((4, R.OP_FIELDS))

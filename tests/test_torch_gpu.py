@@ -59,6 +59,47 @@ def test_cuda_kernel_matches_plain_version(cuda, B, T, N):
     assert (np.isfinite(out[..., 0]) == fin).all()
 
 
+def _mixed_inputs(rng, B, T, N):
+    """Every class, tiles without MACs, lanes or SFU parallelism, random
+    clocks and bandwidths, and sfu kinds outside {1, 2, 4} (the kernel's
+    general case)."""
+    tiles = rng.uniform(0.5, 2.0, size=(B, T, P.TILE_FIELDS)).astype(
+        np.float32)
+    tiles[..., 0] = rng.random((B, T)) > 0.3
+    tiles[..., 1] = rng.integers(0, 4096, (B, T)) * (rng.random((B, T)) > 0.2)
+    tiles[..., 2] = rng.choice([0.0, 16.0, 128.0], (B, T))
+    tiles[..., 3] = rng.uniform(0.5e9, 2e9, (B, T))
+    tiles[..., 5] = rng.integers(0, 64, (B, T))
+    tiles[..., 6] = rng.choice([0.0, 1.0, 4.0, 16.0], (B, T))
+    tiles[..., 7] = rng.random((B, T)) > 0.3
+    tiles[..., 9] = rng.uniform(1e9, 8e9, (B, T))
+    ops = np.stack([
+        rng.integers(0, 3, N), rng.integers(0, 10**6, N),
+        rng.integers(1, 10**5, N), rng.integers(1, 10**6, N),
+        rng.integers(1, 4096, N),
+        rng.choice([0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 8.0], N),
+        rng.choice([0.0, 512.0, 1000.0], N)], axis=1).astype(np.float32)
+    return tiles, ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 7, 31, 608])
+@pytest.mark.parametrize("T", [1, 24, 64])
+def test_cuda_dse_eval_seconds_bitwise(cuda, N, T):
+    """The kernel's seconds and energy equal the plain version's bit for
+    bit (the same IEEE operations in the same order, nothing contracted),
+    ops of every class mixed and sfu kinds outside {1, 2, 4}."""
+    B = 300
+    tiles, ops = _mixed_inputs(np.random.default_rng(N * 100 + T), B, T, N)
+    tt, ot = torch.from_numpy(tiles).to(cuda), torch.from_numpy(ops).to(cuda)
+    got = K.dse_eval(tt, ot)
+    want = P.dse_eval_ref(tt, ot)
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., 0], want[..., 0])
+    assert torch.isfinite(want[..., 0]).any()
+    assert torch.equal(got[..., 1], want[..., 1])
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_no_hostable_tile(cuda):
     tiles = np.zeros((2, 4, P.TILE_FIELDS), np.float32)
@@ -237,11 +278,12 @@ def test_cuda_ssm_scan_bwd_matches_plain_version(cuda, shape, dtype):
 
 # (B, S, H, P, N, chunk): a chunk that is not a multiple of 16 (one 64-row
 # tile with 16 rows masked; the last tile's rows past S read as zeros),
-# chunks of 128 rows (two tiles a chunk) and of 96 (64 + 32), at N 16 and
-# N 128 and at each P of the bf16 kernels
+# chunks of 128 rows (two tiles a chunk), of 96 (64 + 32) and of 256 (four
+# tiles), at N 16 and N 128 and at each P of the bf16 kernels
 _CHUNKS = [(1, 48, 2, 64, 16, 48), (1, 48, 2, 64, 128, 48),
            (2, 144, 3, 32, 16, 48), (2, 256, 3, 64, 16, 128),
-           (1, 256, 2, 16, 128, 128), (1, 192, 2, 64, 32, 96)]
+           (1, 256, 2, 16, 128, 128), (1, 192, 2, 64, 32, 96),
+           (1, 256, 2, 64, 128, 256)]
 
 
 def _ssm_inputs(cuda, shape, dtype):
@@ -257,16 +299,14 @@ def _ssm_inputs(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,dtype",
-                         [(s, torch.bfloat16) for s in _CHUNKS]
-                         + [(s, torch.float32) for s in _CHUNKS
-                            if s[-1] < 128])
+@pytest.mark.parametrize("shape", _CHUNKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_ssm_scan_chunk_lengths(cuda, shape, dtype):
     """Chunk lengths other than 64: the forward within the limits of
     test_cuda_ssm_scan_matches_plain_version, the gradients within those
-    of test_cuda_ssm_scan_bwd_matches_plain_version.  Chunks of 128 rows
-    run in bfloat16 only: the float32 CUDA-core backward keeps the (L, L)
-    matrices in shared memory, more than a block has at that length."""
+    of test_cuda_ssm_scan_bwd_matches_plain_version.  Both dtypes walk a
+    chunk in tiles of at most 64 rows, so chunks of 128 and 256 rows run
+    at N 128 in float32 too."""
     L = shape[-1]
     x, dt, al, b, c, dy = _ssm_inputs(cuda, shape, dtype)
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
@@ -288,21 +328,93 @@ def test_cuda_ssm_scan_chunk_lengths(cuda, shape, dtype):
 
 @pytest.mark.gpu
 def test_cuda_ssm_scan_bf16_limits_raise(cuda):
-    """bfloat16 chunks longer than 128 rows, and head dims the tensor-core
-    kernels do not instantiate, raise on the card, forward and backward;
-    nothing falls back to the CUDA-core kernels or the plain version."""
+    """Head dims the tensor-core kernels do not instantiate (P = 24) raise
+    on the card, forward and backward; nothing falls back to the CUDA-core
+    kernels or the plain version.  (Chunks longer than 128 rows run:
+    test_cuda_ssm_scan_bf16_chunk_256.)"""
     before = dict(K.launch_counts)
-    x, dt, al, b, c, dy = _ssm_inputs(cuda, (1, 256, 2, 64, 16, 256),
-                                      torch.bfloat16)
-    with pytest.raises(ValueError, match="128"):
-        K.ssm_scan(x, dt, al, b, c, chunk=256)
-    with pytest.raises(ValueError, match="128"):
-        K.ssm_scan_bwd(x, dt, al, b, c, dy, chunk=256)
     x, dt, al, b, c, dy = _ssm_inputs(cuda, (1, 64, 2, 24, 16, 64),
                                       torch.bfloat16)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="P in"):
         K.ssm_scan(x, dt, al, b, c, chunk=64)
+    with pytest.raises(ValueError, match="P in"):
+        K.ssm_scan_bwd(x, dt, al, b, c, dy, chunk=64)
     assert K.launch_counts == before
+
+
+@pytest.mark.gpu
+def test_cuda_ssm_scan_bf16_chunk_256(cuda):
+    """A bfloat16 chunk of 256 rows (four tiles), which the kernels
+    refused before they took any chunk that divides S: the forward and the
+    gradients within 5e-2 of the plain version's."""
+    x, dt, al, b, c, dy = _ssm_inputs(cuda, (1, 256, 2, 64, 16, 256),
+                                      torch.bfloat16)
+    before = dict(K.launch_counts)
+    got = K.ssm_scan(x, dt, al, b, c, chunk=256)
+    want = P.ssm_scan_ref(x, dt, al, b, c, chunk=256)
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)
+    grads = K.ssm_scan_bwd(x, dt, al, b, c, dy, chunk=256)
+    torch.cuda.synchronize()
+    assert K.launch_counts["ssm_scan"] == before["ssm_scan"] + 1
+    assert K.launch_counts["ssm_scan_bwd"] == before["ssm_scan_bwd"] + 1
+    ref = [t.clone().requires_grad_() for t in (x, dt, al, b, c)]
+    wants = torch.autograd.grad(P.ssm_scan_ref(*ref, chunk=256), ref, dy)
+    for name, a, w in zip(("x", "dt", "a_log", "b", "c"), grads, wants):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert _rel_max(a, w) <= 5e-2, (name, _rel_max(a, w))
+
+
+@pytest.mark.gpu
+def test_cuda_attention_long_step_on_a_filled_cache(cuda):
+    """``Attention`` in bf16 at head dim 128: a prefill of 24 tokens into
+    an empty cache, then a step of 1,024 tokens (above ``_Q_CHUNK``, a
+    multiple of it), which runs the tensor-core flash kernel over the
+    first 1,048 cache rows (a strided view of the cache; 1,048 keys for
+    1,024 queries, not a multiple of 64).  Outputs and caches are held
+    against the same module on the CPU (the plain version) at 2e-2."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_config
+
+    cfg = dataclasses.replace(get_config("starcoder2-15b").reduced(),
+                              d_head=128, n_kv_heads=2)
+    host = L.Attention(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    mods = {"cpu": host, "cuda": copy.deepcopy(host).to(cuda)}
+    B, S0, step = 2, 24, 1024
+    shape = (B, S0 + step + 8, cfg.n_kv_heads, cfg.head_dim)
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.normal(size=(B, n, cfg.d_model)).astype(
+        np.float32)).to(torch.bfloat16) for n in (S0, step)]
+    outs, caches = {}, {}
+    before = K.launch_counts["flash_attention"]
+    with torch.no_grad():
+        for dev, mod in mods.items():
+            cache = {"k": torch.zeros(shape, dtype=torch.bfloat16),
+                     "v": torch.zeros(shape, dtype=torch.bfloat16),
+                     "len": torch.zeros((B,), dtype=torch.int32)}
+            cache = {k: v.to(dev) for k, v in cache.items()}
+            outs[dev] = []
+            for s0, x in zip((0, S0), xs):
+                pos = torch.arange(s0, s0 + x.shape[1], dtype=torch.int32)
+                y, cache = mod(x.to(dev), pos.expand(B, -1).to(dev), cache)
+                outs[dev].append(y)
+            caches[dev] = cache
+    torch.cuda.synchronize()
+    # the prefill and the long step, each through the kernel
+    assert K.launch_counts["flash_attention"] == before + 2
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   rtol=2e-2, atol=2e-2)
+    for key in ("k", "v"):
+        torch.testing.assert_close(caches["cuda"][key].float().cpu(),
+                                   caches["cpu"][key].float(), rtol=2e-2,
+                                   atol=2e-2)
+    assert caches["cuda"]["len"].tolist() == [S0 + step] * B
 
 
 @pytest.mark.gpu
@@ -320,6 +432,29 @@ def test_cuda_horner_bitwise_plain_version(cuda, n, degree, dtype):
     assert K.launch_counts["horner"] == before + 1
     want = P.horner_ref(x, cf)
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [7, 9, (1 << 20) + 3])
+@pytest.mark.parametrize("degree", [8, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_horner_vectors_and_edges(cuda, n, degree, dtype, offset):
+    """Lengths that are no multiple of the 16-byte vector, a view that
+    starts off a 16-byte boundary (x[1:]), and degree 17 (past the 16
+    coefficients held in registers): bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(7 * n + degree + offset)
+    x = torch.randn((n + offset,), generator=g, device=cuda).to(dtype)
+    x = x[offset:]
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    cf = torch.randn((degree + 1,), generator=g, device=cuda) * 0.5
+    before = K.launch_counts["horner"]
+    got = K.horner(x, cf)
+    torch.cuda.synchronize()
+    assert K.launch_counts["horner"] == before + 1
+    want = P.horner_ref(x, cf)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

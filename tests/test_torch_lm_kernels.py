@@ -9,6 +9,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as RO  # noqa: E402
 from repro.kernels import ref as R  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.kernels.ssm_scan import ssm_scan_pallas  # noqa: E402
@@ -91,6 +92,22 @@ def test_ssm_scan_chunk_invariance(rng):
     o32 = K.ssm_scan(*tx, chunk=32).numpy()
     o64 = K.ssm_scan(*tx, chunk=64).numpy()
     np.testing.assert_allclose(o32, o64, rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_scan_default_chunk_is_the_reference_entry_points(rng):
+    """With the chunk omitted, ``ops.ssm_scan`` chunks as the reference's
+    entry point (``repro/kernels/ops.py::ssm_scan``, 128 rows) does; S =
+    256 tells 128 from 64.  The backward's default is the same chunk."""
+    jx, tx = _ssm_inputs(rng, 2, 256, 3, 16, 8, jnp.float32)
+    got = K.ssm_scan(*tx).numpy()
+    want = np.asarray(RO.ssm_scan(*jx, use_pallas=False))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(torch.from_numpy(got), K.ssm_scan(*tx, chunk=128))
+    assert not torch.equal(torch.from_numpy(got), K.ssm_scan(*tx, chunk=64))
+    dy = torch.from_numpy(rng.normal(size=got.shape).astype(np.float32))
+    for a, w in zip(K.ssm_scan_bwd(*tx, dy), K.ssm_scan_bwd(*tx, dy,
+                                                           chunk=128)):
+        assert torch.equal(a, w)
 
 
 def test_wrappers_check_inputs():

@@ -118,6 +118,69 @@ def test_attention_prefill_and_decode(rng, arch, kv):
     assert tcache["len"].tolist() == [S + 1] * B
 
 
+def _strict(fn):
+    """``fn`` compiled with every bf16 primitive rounding (as each PyTorch
+    op on a bf16 tensor does; tests/test_torch_lm_serve.py), once per
+    input signature."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        leaves, tree = jax.tree.flatten(args)
+        key = (tree, tuple((np.shape(a), str(jnp.asarray(a).dtype))
+                           for a in leaves))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(
+                compiler_options={"xla_allow_excess_precision": False})
+        return compiled[key](*args)
+    return call
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL),
+                                       ("bfloat16", dict(rtol=2e-2,
+                                                         atol=2e-2))])
+@pytest.mark.parametrize("step", [3, 1024])
+def test_attention_multi_token_step_on_a_filled_cache(rng, dtype, tol, step):
+    """A prefill of 24 tokens into an empty cache, then a step of
+    ``step`` tokens against it (positions 24 on), outputs and caches
+    against the reference's ``attention``.  Weights come over through
+    ``models/convert.py``.  A step of 3 tokens takes ``_sdpa_direct``; one
+    of 1,024 (above ``_Q_CHUNK``, a multiple of it) takes the reference's
+    ``_sdpa_blocked`` and the port's flash path over the first 1,048
+    cache rows."""
+    jc, tc = (dataclasses.replace(c, n_kv_heads=2)
+              for c in _cfgs("starcoder2-15b"))
+    jdt = jnp.dtype(dtype)
+    p = jax.tree.map(lambda a: jnp.asarray(a, jdt),
+                     JL.init_attention(jax.random.PRNGKey(1), jc))
+    mod = TL.Attention(tc, device="cpu", generator=None)
+    for name, prm in mod.named_parameters():
+        leaf = p
+        for part in name.split("."):
+            leaf = leaf[part]
+        prm.data = to_torch(np.asarray(leaf))
+    B, S0, T = 2, 24, 24 + step + 8
+    attention = _strict(lambda p, x, pos, cache:
+                        JL.attention(p, jc, x, pos, cache))
+    shape = (B, T, jc.n_kv_heads, jc.head_dim)
+    jcache = {"k": jnp.zeros(shape, jdt), "v": jnp.zeros(shape, jdt),
+              "len": jnp.zeros((B,), jnp.int32)}
+    tcache = {k: to_torch(np.asarray(v)) for k, v in jcache.items()}
+    for s0, n in ((0, S0), (S0, step)):
+        xs = rng.normal(size=(B, n, jc.d_model)).astype(np.float32)
+        jx = jnp.asarray(xs, jdt)
+        pos = np.broadcast_to(np.arange(s0, s0 + n, dtype=np.int32), (B, n))
+        jy, jcache = attention(p, jx, jnp.asarray(pos), jcache)
+        ty, tcache = mod(to_torch(np.asarray(jx)),
+                         torch.from_numpy(pos.copy()), tcache)
+        assert ty.dtype == getattr(torch, dtype)
+        _close(jnp.asarray(jy, jnp.float32), ty.float(), tol)
+        for key in ("k", "v"):
+            _close(jnp.asarray(jcache[key], jnp.float32),
+                   tcache[key].float(), tol)
+        assert tcache["len"].tolist() == [s0 + n] * B
+        assert np.array_equal(np.asarray(jcache["len"]), tcache["len"])
+
+
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "starcoder2-15b"])
 def test_ffn(rng, arch):
     """silu-gated (jamba) and gelu (starcoder2) FFNs."""
