@@ -88,13 +88,32 @@ script exits non-zero without printing a result):
                 Jamba, mamba2 and starcoder2 with the same weights on both
                 devices, in bf16 and in float32 (Jamba's gradients layer by
                 layer), per leaf; planted faults (a layer in float8, a
-                layer dropped, a zeroed dq or db) must be rejected.
+                layer dropped, a zeroed dq or db) must be rejected;
+17. exact    -- (runs right after phase 7, with phases 4 and 6 still in
+                memory) ``EvalEngine(backend="exact")`` on ``cuda``, the
+                search that maps and executes each op row in one pass, cold
+                on the first 1,024 of phase 4's genomes x 20 workloads and
+                on the first 256 of phase 6's in throughput mode: bit for
+                bit those phases' rows; evaluations/s beside phase 4's
+                (both backends run the same search loop,
+                ``batched_mapper._search_one``, in micro-batches of 1,024);
+18. search   -- (right after phase 17) the search frontends on
+                PARITY_WORKLOADS through one shared exact engine on
+                ``cuda``: ``run_sweeps`` (seeds 0, 1, 8 genomes a stratum),
+                ``run_ga(loop="host")`` at 200 mm^2, ``run_bayes`` with the
+                Eq. 8 objective, and seed 0's Pareto front over (mean
+                energy, area, mean latency) by ``pareto_front`` and by
+                ``pareto_mask_device`` on the card (equal); then the same
+                search with a fresh engine on ``cpu``: the same sampled
+                genomes, GA best genome, Pareto indices and BO optimum, the
+                GA history within rel 1e-9; seconds per stage.
 
 Then one JSON line describing the kernels (times, launches, bounds) and,
 as the last line, ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
 writes every number to a JSON file; ``--profile`` adds torch.profiler
-traces of one DSE micro-batch (4b), of one prefill wave and one decode
-step (10b) and of one training step of each training phase (14b, 15b).
+traces of one DSE micro-batch (4b) and one exact micro-batch (17b), of
+one prefill wave and one decode step (10b) and of one training step of
+each training phase (14b, 15b).
 """
 from __future__ import annotations
 
@@ -125,6 +144,14 @@ PARITY_POPULATION = 64
 THROUGHPUT_WORKLOADS = ["kan", "resnet50_int8", "hyena_1_3b",
                         "llama7b_int4"]
 PARITY_WORKLOADS = ["kan", "resnet50_int8", "hyena_1_3b"]
+# phase 17: the exact engine on the first genomes of phases 4 and 6 (cut
+# from 4,096 to keep the run's time: phase 4 alone takes 240-490 s)
+EXACT_POPULATION, EXACT_THROUGHPUT_POPULATION = 1024, 256
+# phase 18: the search frontends on PARITY_WORKLOADS
+SEARCH_SEEDS, SEARCH_SAMPLES, SEARCH_BRACKET = (0, 1), 8, 200.0
+SEARCH_GA = dict(population=32, generations=4, seed_top_k=16, early_stop=4)
+SEARCH_BO = dict(init_samples=32, rounds=2, batch_per_round=8,
+                 candidate_pool=256)
 GOLDEN_WORKLOADS = ["resnet50_int8", "vit_b16_fp16", "llama7b_int4",
                     "snn_vgg9", "hyena_1_3b", "kan"]
 
@@ -400,8 +427,9 @@ def dse_launches(np, dev):
 
 
 def _dse_phases(torch, np, dev, args, record):
-    """Phases 3-7, the DSE evaluation path; returns the kernel line of
-    ``dse_eval``.  Its tensors are freed when it returns."""
+    """Phases 3-7, 17 and 18, the DSE evaluation path and the search on top
+    of it; returns the kernel line of ``dse_eval``.  Its tensors are freed
+    when it returns."""
     from repro_torch.core.arch import hetero_bls
     from repro_torch.core.compiler.batched_mapper import map_and_simulate
     from repro_torch.core.dse.api import EngineConfig
@@ -616,6 +644,11 @@ def _dse_phases(torch, np, dev, args, record):
            f"({len(GOLDEN_WORKLOADS)} workloads x 2 modes on cuda) max rel "
            f"err {golden_worst:.3e} (limit 1e-6)")
 
+    # ---- 17, 18. the exact search and the search frontends ------------------
+    record["exact"] = _exact_phase(torch, np, dev, args, genomes, res,
+                                   record["main_path"], g1, rt)
+    record["search"] = _search_phase(torch, np, dev)
+
     return {
         "name": "dse_eval", "route": "cuda",
         "source": "src/repro_torch/csrc/dse_eval.cu",
@@ -623,6 +656,219 @@ def _dse_phases(torch, np, dev, args, record):
         "launches": main_launches["dse_eval"], "max_abs_err": max_abs,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}
+
+
+_ROWS = ("latency", "energy", "tops_w")
+
+
+def _same_rows(np, got, want, what):
+    """The engine's three metric columns bit for bit (inf where unmappable
+    in the same places)."""
+    for k in _ROWS:
+        check(got[k].shape == want[k].shape, f"{what} {k} shape")
+        check(np.array_equal(np.isinf(got[k]), np.isinf(want[k])),
+              f"{what}: {k} inf in other places")
+        check(np.array_equal(got[k], want[k]),
+              f"{what}: {k} not bit for bit (max abs diff "
+              f"{float(np.nanmax(np.abs(got[k] - want[k]))):.3e})")
+
+
+def _exact_phase(torch, np, dev, args, genomes, res4, main_path, g1, rt):
+    """Phase 17: ``EvalEngine(backend="exact")`` (the search: one pass per
+    workload mapping and executing each row) cold on the first
+    EXACT_POPULATION of phase 4's genomes on all 20 workloads, and on the
+    first EXACT_THROUGHPUT_POPULATION of phase 6's in throughput mode;
+    both bit for bit equal to those phases' rows."""
+    from repro_torch.core.dse.api import EngineConfig
+    from repro_torch.core.dse.engine import EvalEngine
+    from repro_torch.core.workloads import workload_names
+
+    names = workload_names()
+    g = genomes[:EXACT_POPULATION]
+    eng = EvalEngine(names, config=EngineConfig(backend="exact",
+                                                mode="latency"))
+    check(eng.device.type == DEVICE and eng.batch == len(g),
+          f"exact engine on {eng.device}, batch {eng.batch}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rx = eng.evaluate(g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _same_rows(np, rx, {k: res4[k][:len(g)] for k in _ROWS}, "exact vs "
+               "phase 4")
+    check(rx["meta"]["dispatches"] == 1, f"meta {rx['meta']}")
+    evals = len(g) * len(names) / wall
+
+    gt = g1[:EXACT_THROUGHPUT_POPULATION]
+    eng_t = EvalEngine(THROUGHPUT_WORKLOADS,
+                       config=EngineConfig(backend="exact",
+                                           mode="throughput"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rxt = eng_t.evaluate(gt)
+    torch.cuda.synchronize()
+    wall_t = time.perf_counter() - t0
+    _same_rows(np, rxt, {k: rt[k][:len(gt)] for k in _ROWS}, "exact "
+               "throughput vs phase 6")
+    out = {"wall_s": wall, "evals_per_s": evals,
+           "phase4_evals_per_s": main_path["evals_per_s"],
+           "throughput_wall_s": wall_t,
+           "throughput_evals_per_s": len(gt) * len(THROUGHPUT_WORKLOADS)
+           / wall_t, "meta": rx["meta"]}
+    _phase(17, "exact", f"EvalEngine exact/latency on {eng.device}: "
+           f"{len(g)} genomes x {len(names)} workloads in {wall:.3f} s = "
+           f"{evals:.1f} evaluations/s (phase 4, batched: "
+           f"{main_path['evals_per_s']:.1f}; both in micro-batches of "
+           f"{eng.batch}), bit for bit phase 4's rows; throughput mode "
+           f"{len(gt)} x {len(THROUGHPUT_WORKLOADS)} in {wall_t:.3f} s "
+           f"= {out['throughput_evals_per_s']:.1f} evaluations/s, bit for "
+           f"bit phase 6's rows")
+    if args.profile:
+        out["profile"] = _profile_exact_micro_batch(torch, genomes, dev)
+    return out
+
+
+def _profile_exact_micro_batch(torch, genomes, dev):
+    """Trace one exact micro-batch: ``search_population`` of resnet50_int8
+    on 1,024 genomes (phase 4b's inputs)."""
+    from repro_torch.core.compiler.batched_mapper import search_population
+    from repro_torch.core.dse.engine import genomes_to_configs, \
+        prepared_workload
+    from repro_torch.core.simulator.batched import place_configs
+
+    ws = prepared_workload("resnet50_int8")
+    cfgs = genomes_to_configs(genomes[:1024])
+    placed = place_configs(cfgs, dev)
+
+    def run():
+        search_population([ws], cfgs, out_keys=("latency_s", "energy_pj",
+                                                "achieved_tops"),
+                          device=dev, placed=placed)
+        torch.cuda.synchronize()
+
+    out = _trace(torch, run)
+    _phase("17b", "profile", json.dumps(out))
+    return out
+
+
+def _search(np, device):
+    """Phase 18's search on one device: the stratified sweep (two seeds),
+    the host GA at 200 mm^2, BO with the Eq. 8 objective and the Pareto
+    front of seed 0's sweep, through one shared exact engine.  Returns
+    the results and the seconds of each stage."""
+    import torch
+    from repro_torch.core.dse.api import EngineConfig
+    from repro_torch.core.dse.bayes import BayesConfig, run_bayes
+    from repro_torch.core.dse.engine import EvalEngine
+    from repro_torch.core.dse.ga import GAConfig, run_ga
+    from repro_torch.core.dse.objective import fitness
+    from repro_torch.core.dse.pareto import (pareto_front, pareto_mask,
+                                             pareto_mask_device)
+    from repro_torch.core.dse.sweep import run_sweeps
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    eng = EvalEngine(PARITY_WORKLOADS, config=EngineConfig(backend="exact"),
+                     device=device)
+    secs = {}
+    t0 = time.perf_counter()
+    sweeps = run_sweeps(PARITY_WORKLOADS, seeds=SEARCH_SEEDS,
+                        samples_per_stratum=SEARCH_SAMPLES, engine=eng)
+    sync()
+    secs["sweep"] = time.perf_counter() - t0
+    base = sweeps[0].homo_baseline()
+    check(SEARCH_BRACKET in base, f"no homogeneous baseline at "
+          f"{SEARCH_BRACKET} mm^2 in seed 0's sweep")
+    e_homo = base[SEARCH_BRACKET]
+
+    t0 = time.perf_counter()
+    ga = run_ga(sweeps[0], SEARCH_BRACKET, GAConfig(**SEARCH_GA),
+                loop="host", engine=eng)
+    sync()
+    secs["ga"] = time.perf_counter() - t0
+    check(ga is not None and np.isfinite(ga.best_fitness),
+          "GA found no finite fitness")
+
+    def eq8(m):             # Eq. 8 against seed 0's baseline at the bracket
+        tw = m["tops_w"].max(axis=1)
+        return np.asarray([fitness(e, e_homo, t, tw.max())
+                           for e, t in zip(m["energy"], tw)])
+
+    t0 = time.perf_counter()
+    bo = run_bayes(PARITY_WORKLOADS, eq8, BayesConfig(**SEARCH_BO),
+                   engine=eng)
+    sync()
+    secs["bo"] = time.perf_counter() - t0
+    check(np.isfinite(bo["best_score"]), "BO found no finite score")
+
+    # examples/dse_search.py's front: (mean energy, area, mean latency)
+    sw = sweeps[0]
+    valid = sw.valid_mask()
+    pts = np.stack([sw.energy[valid].mean(1), sw.area[valid],
+                    sw.latency[valid].mean(1)], axis=1)
+    t0 = time.perf_counter()
+    front = pareto_front(pts)
+    on_dev = pareto_mask_device(pts, device=device).cpu().numpy()
+    secs["pareto"] = time.perf_counter() - t0
+    check(np.array_equal(on_dev, pareto_mask(pts)),
+          f"pareto_mask_device on {device} differs from pareto_mask")
+    check(np.array_equal(np.flatnonzero(on_dev), np.sort(front)),
+          "the two fronts differ")
+    return {"sweeps": sweeps, "ga": ga, "bo": bo, "front": front,
+            "valid": int(valid.sum()), "secs": secs,
+            "stats": dataclasses.asdict(eng.stats)}
+
+
+def _search_phase(torch, np, dev):
+    """Phase 18: the search frontends on the card (``_search``), then the
+    same search with a fresh engine on the CPU: the same sampled genomes,
+    GA best genome, Pareto indices and BO optimum, and a GA history within
+    rel 1e-9."""
+    card = _search(np, dev)
+    cpu = _search(np, "cpu")
+    for s in SEARCH_SEEDS:
+        check(np.array_equal(card["sweeps"][s].genomes,
+                             cpu["sweeps"][s].genomes),
+              f"seed {s}: sampled genomes differ between card and CPU")
+    check(np.array_equal(card["ga"].best_genome, cpu["ga"].best_genome),
+          "GA best genome differs between card and CPU")
+    hc, hp = np.asarray(card["ga"].history), np.asarray(cpu["ga"].history)
+    ga_err = float(np.max(np.abs(hc - hp) / np.maximum(np.abs(hp), 1e-300)))
+    check(hc.shape == hp.shape and ga_err <= 1e-9,
+          f"GA history card vs CPU: rel err {ga_err:.3e} > 1e-9")
+    check(np.array_equal(card["front"], cpu["front"]),
+          "Pareto indices differ between card and CPU")
+    check(np.array_equal(card["bo"]["best_genome"], cpu["bo"]["best_genome"]),
+          "BO optimum differs between card and CPU")
+    st = card["stats"]
+    evals = (st["misses"] * st["workloads"]) / max(st["eval_seconds"], 1e-12)
+    out = {"card_s": card["secs"], "cpu_s": cpu["secs"],
+           "card_stats": st, "cpu_stats": cpu["stats"],
+           "card_evals_per_s": evals,
+           "sweep_genomes": {s: len(card["sweeps"][s].genomes)
+                             for s in SEARCH_SEEDS},
+           "ga_best_fitness": card["ga"].best_fitness,
+           "ga_history_rel_err": ga_err, "ga_evaluated": card["ga"].evaluated,
+           "bo_best_score": card["bo"]["best_score"],
+           "front": card["front"].tolist(), "valid": card["valid"]}
+    secs = ", ".join(f"{k} {v:.3f}" for k, v in card["secs"].items())
+    cpu_secs = ", ".join(f"{k} {v:.3f}" for k, v in cpu["secs"].items())
+    _phase(18, "search", f"exact engine on {PARITY_WORKLOADS} on {dev}: "
+           f"sweep seeds {list(SEARCH_SEEDS)} x {SEARCH_SAMPLES}/stratum "
+           f"({sum(out['sweep_genomes'].values())} genomes), GA at "
+           f"{SEARCH_BRACKET:.0f} mm^2 ({card['ga'].evaluated} evaluated, "
+           f"best fitness {card['ga'].best_fitness:+.6f}), BO (best Eq. 8 "
+           f"{card['bo']['best_score']:+.6f}), Pareto front "
+           f"{len(card['front'])} of {card['valid']} valid (pareto_front "
+           f"== pareto_mask_device); card s: {secs}; "
+           f"{evals:.1f} evaluations/s over the engine's evaluate time; "
+           f"engine hits {st['hits']} misses {st['misses']} skips "
+           f"{st['skips']}; CPU s: {cpu_secs}; card == CPU: genomes, GA "
+           f"best genome, Pareto indices, BO optimum; GA history rel err "
+           f"{ga_err:.3e} (limit 1e-9)")
+    return out
 
 
 def _max_err(got, want, tol):
@@ -1585,7 +1831,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write every number to this JSON")
     ap.add_argument("--profile", action="store_true",
                     help="also trace, with torch.profiler, one DSE engine "
-                         "micro-batch (resnet50_int8, 1,024 genomes), one "
+                         "micro-batch of each exact backend (resnet50_int8, "
+                         "1,024 genomes), one "
                          "(4, 512) prefill wave, one decode step and one "
                          "step of each training phase: device busy share "
                          "and the kernels that take the time")

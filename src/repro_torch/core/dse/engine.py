@@ -1,11 +1,14 @@
 """Cache-aware DSE evaluation engine on torch -- the search's one hot path.
 
-Port of ``repro/core/dse/engine.py`` for ``backend="batched"``: every
-cache miss is scored by ``compiler.batched_mapper.map_and_simulate``
-(the exact Eq. 1-3 mapping followed by the batched plan executor), one
-call per workload per micro-batch, on the engine's device.  The engine
-keeps the reference's three host caches: the per-workload preparation
-cache (``prepared_workload``), the genome memo behind the
+Port of ``repro/core/dse/engine.py`` for the two compile-free exact
+backends, ``"exact"`` and ``"batched"``.  Both score every cache miss
+with one ``compiler.batched_mapper.search_population`` call per
+micro-batch over all the workloads (the exact Eq. 1-3 mapping and the
+batched plan executor in one pass per workload, returning only the
+mode's three metric columns); in the reference they are two programs
+with the same results, so the two names share memo keys.  The
+engine keeps the reference's three host caches: the per-workload
+preparation cache (``prepared_workload``), the genome memo behind the
 ``ResultStore`` interface (keys are ``mode:`` + canonical genome bytes),
 and the vectorized genome -> config stacking (``genomes_to_configs``,
 bitwise the reference's).
@@ -13,10 +16,9 @@ bitwise the reference's).
 ``EvalEngine(workloads, config=EngineConfig(...), device=None)`` runs on
 ``cuda`` and raises without a card unless ``device="cpu"`` is passed.
 Combinations that are not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md queue item: ``backend`` ``scan`` / ``exact`` /
-``oracle``, ``exact_mapper="python"``, ``fidelity="link"`` and
-``shard=True``.  The reference's deprecated per-knob constructor
-arguments are not ported.
+naming their ROADMAP.md queue item: ``backend`` ``scan`` / ``oracle``,
+``exact_mapper="python"``, ``fidelity="link"`` and ``shard=True``.  The
+reference's deprecated per-knob constructor arguments are not ported.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import numpy as np
 from ...device import resolve_device
 from ..arch import KNOB_GRID, MAX_TILE_TYPES, MAX_TILES, prec_mask
 from ..calibrate.asap7 import CalibrationTable, DEFAULT_CALIB
-from ..compiler.batched_mapper import map_and_simulate
+from ..compiler.batched_mapper import search_population
 from ..simulator.batched import CHIP_KEYS as _CHIP_KEYS
 from ..simulator.batched import place_configs
 from ..simulator.costs import grid_dims
@@ -81,7 +83,6 @@ _MODE_KEYS = {
 # configurations this slice does not run yet, with their ROADMAP.md item
 _UNPORTED_BACKENDS = {
     "scan": "A8 (the scan backend, batch_eval's in-scan mapping)",
-    "exact": "A6 (the class-specialized search_population scan)",
     "oracle": "A4 (the ChipSim oracle)",
 }
 
@@ -385,7 +386,7 @@ class EvalEngine:
             raise NotImplementedError(
                 f"backend={config.backend!r} is not ported yet: ROADMAP.md "
                 f"queue item {_UNPORTED_BACKENDS[config.backend]}; use "
-                f"backend='batched'")
+                f"backend='exact' or 'batched'")
         if config.exact_mapper != "batched":
             raise NotImplementedError(
                 "exact_mapper='python' is not ported yet: ROADMAP.md queue "
@@ -435,6 +436,22 @@ class EvalEngine:
                               self.backend, self.fidelity, self.device.type)
 
     # ------------------------------------------------------------- plumbing
+    def check_workloads(self, workloads: Sequence[str],
+                        calib: Optional[CalibrationTable] = None
+                        ) -> "EvalEngine":
+        """Guard for shared-engine frontends: metric columns follow
+        *this* engine's workload order and calibration, so a caller
+        holding a different list (or passing a different calib) would get
+        silently mislabeled or miscalibrated numbers."""
+        if list(workloads) != self.workloads:
+            raise ValueError(
+                f"engine workloads {self.workloads} != caller workloads "
+                f"{list(workloads)}")
+        if calib is not None and calib != self.calib:
+            raise ValueError("caller calib differs from the shared "
+                             "engine's calib — results would not match")
+        return self
+
     def _prepared(self, wname: str) -> Dict[str, np.ndarray]:
         return prepared_workload(wname, self.aggressive_int4,
                                  self.enable_fusion)
@@ -455,8 +472,9 @@ class EvalEngine:
                 "chip": {k: v[idx] for k, v in cfgs["chip"].items()}}
 
     def _simulate(self, cfgs, mode: str):
-        """(n, W) lat/en/tw for a config stack: per workload, one
-        ``map_and_simulate`` on this engine's device.  Unmappable
+        """(n, W) lat/en/tw for a config stack on this engine's device:
+        one ``search_population`` call over all the workloads, fetching
+        only the mode's three columns (both backends).  Unmappable
         (genome, workload) pairs score inf latency/energy and 0 TOPS/W."""
         self.stats.dispatches += 1
         lkey, ekey, akey = _MODE_KEYS[mode]
@@ -466,10 +484,11 @@ class EvalEngine:
         tw = np.zeros((n, W))
         # device placement once, not once per workload
         placed = place_configs(cfgs, self.device)
-        for j, wname in enumerate(self.workloads):
-            res = map_and_simulate(self._prepared(wname), cfgs, self.calib,
-                                   mode=mode, device=self.device,
-                                   placed=placed, placements=False)
+        results = search_population(
+            [self._prepared(w) for w in self.workloads], cfgs, self.calib,
+            mode=mode, out_keys=(lkey, ekey, akey), device=self.device,
+            placed=placed)
+        for j, res in enumerate(results):
             ok = res["ok"]
             l, e = res[lkey], res[ekey]
             lat[ok, j] = l[ok]
@@ -575,9 +594,8 @@ class EvalEngine:
 
     def rescore(self, genomes: np.ndarray, oracle: bool = False,
                 mode: Optional[str] = None) -> Dict[str, np.ndarray]:
-        """Exact re-scoring through the batched mapper + executor,
-        bypassing the memo.  ``oracle=True`` (the ChipSim walk) is not
-        ported yet."""
+        """Exact re-scoring through the search, bypassing the memo.
+        ``oracle=True`` (the ChipSim walk) is not ported yet."""
         if oracle:
             raise NotImplementedError(
                 "rescore(oracle=True) is not ported yet: ROADMAP.md queue "
@@ -593,6 +611,22 @@ class EvalEngine:
                          "requests": len(genomes), "hits": 0,
                          "misses": len(genomes), "skips": 0,
                          "hit_rate": 0.0}}
+
+    def reserve_shapes(self, max_batch: int = 64) -> None:
+        """The reference's signature.  The reference pre-registers its
+        jit batch buckets here; the port compiles no shapes and pads no
+        batch, so there is nothing to reserve and this changes nothing."""
+
+    def warmup(self, buckets: Sequence[int] = tuple(range(16, 68, 4))
+               ) -> None:
+        """Run one small search dispatch on every
+        workload (one genome, bypassing the memo), so that the first
+        generation's time excludes first-use costs: the preparation cache,
+        the cost model's device tables and the device's own start-up.
+        ``buckets`` is the reference's signature; the port has no batch
+        shapes to compile."""
+        g = np.zeros((1, GENOME_LEN), np.int64)
+        self._simulate(self._configs(g), self.mode)
 
     def areas(self, genomes: np.ndarray) -> np.ndarray:
         """Chip areas only -- no simulation, no cache interaction (both

@@ -21,7 +21,7 @@ execution with the explicit NoC reduce.  The aggregate fidelity tier is
 ported; the link tier is not yet.
 
 State tensors are updated in place (the reference's carry is
-immutable); nothing outside ``execute_plan`` holds them.
+immutable); nothing outside the ``PlanExecutor`` holds them.
 """
 from __future__ import annotations
 
@@ -42,7 +42,8 @@ from .costs import (ACT_CACHE_SLOTS, CACHE_FRAC, F64, OP_COST_KEYS,
 from .orchestrator import noc_hops
 
 __all__ = ["stack_chip_configs", "place_configs", "fifo_insert",
-           "execute_plan", "op_rows", "OpRow", "TILE_KEYS", "CHIP_KEYS"]
+           "PlanExecutor", "op_rows", "OpRow", "TILE_KEYS",
+           "CHIP_KEYS"]
 
 TILE_KEYS = ("exists", "num_macs", "rows", "cols", "engine", "prec_mask",
              "asym_mac", "sparsity", "dataflow", "sram_kb", "dsp_lanes",
@@ -229,76 +230,91 @@ def fifo_insert(fifo_ops: torch.Tensor, fifo_bytes: torch.Tensor,
 # the plan-execution loop (mirrors ChipSim.run op for op)
 # =============================================================================
 
-def execute_plan(cm: CostModel, T: Dict[str, torch.Tensor],
-                 chip: Dict[str, torch.Tensor], rows: Sequence[OpRow],
-                 max_ops: int, total_macs: float,
-                 place: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Execute one workload's placed plan on B candidates.
+class PlanExecutor:
+    """``ChipSim.run``'s state for B candidates, advanced one op row at a
+    time by :meth:`step` and reduced to the result surface by
+    :meth:`finish`.  ``compiler.batched_mapper._search_one`` feeds it
+    each row's placement as the mapper makes it.  ``T`` may carry a
+    ``_cache`` dict shared with the mapper (the cached terms are functions
+    of the tiles alone)."""
 
-    ``place`` holds the mapper's placements (``compiler.batched_mapper``):
-    ``owner`` (B, max_ops) int64 clamped to >= 0, ``n_split`` (B, max_ops)
-    float64, ``split_axis`` (B, max_ops) int64 and ``split_mask``
-    (B, max_ops, MAX_TILES) bool.  Rows whose ``may_split`` is False were
-    placed on one tile by construction, so their split arm is not
-    evaluated.  Returns (B,) tensors (``(B, MAX_TILES)`` for the per-tile
-    stats): the reference's ``batch_simulate`` surface.
-    """
-    c = cm.c
-    B = T["exists"].shape[0]
-    dev = T["exists"].device
-    T = dict(T, _cache={})    # tile x precision / sparsity terms, per call
-    z1 = lambda: torch.zeros((B, 1), dtype=F64, device=dev)  # noqa: E731
-    zt = lambda: torch.zeros((B, MAX_TILES), dtype=F64, device=dev)  # noqa
-    tidx = torch.arange(MAX_TILES, device=dev)
-    exists = T["exists"] > 0
+    def __init__(self, cm: CostModel, T: Dict[str, torch.Tensor],
+                 chip: Dict[str, torch.Tensor], max_ops: int):
+        self.cm, self.chip = cm, chip
+        B = T["exists"].shape[0]
+        dev = self.dev = T["exists"].device
+        # tile x precision / sparsity terms, per evaluation
+        self.T = T if "_cache" in T else dict(T, _cache={})
+        self.B = B
+        self.tidx = torch.arange(MAX_TILES, device=dev)
+        self.exists = T["exists"] > 0
+        zt = self._zt
+        self.tile_finish = zt()
+        self.op_finish = torch.zeros((B, max_ops), dtype=F64, device=dev)
+        self.cached_at = torch.full((B, max_ops + 1), -1, dtype=torch.long,
+                                    device=dev)
+        self.fifo_ops = torch.full((B, MAX_TILES, ACT_CACHE_SLOTS), -1,
+                                   dtype=torch.long, device=dev)
+        self.fifo_bytes = torch.zeros((B, MAX_TILES, ACT_CACHE_SLOTS),
+                                      dtype=F64, device=dev)
+        self.tile_ops, self.tile_active, self.tile_macs = zt(), zt(), zt()
+        self.e_mod = {m: self._z1() for m in (
+            "compute", "dram", "sram", "irf", "orf", "dsp", "special", "noc",
+            "fuse_savings")}
+        self.ev_hit, self.ev_noc, self.ev_miss = self._z1(), self._z1(), \
+            self._z1()
+        self.dram_occ, self.noc_occ = self._z1(), self._z1()
 
-    tile_finish = zt()
-    op_finish = torch.zeros((B, max_ops), dtype=F64, device=dev)
-    cached_at = torch.full((B, max_ops + 1), -1, dtype=torch.long,
-                           device=dev)
-    fifo_ops = torch.full((B, MAX_TILES, ACT_CACHE_SLOTS), -1,
-                          dtype=torch.long, device=dev)
-    fifo_bytes = torch.zeros((B, MAX_TILES, ACT_CACHE_SLOTS), dtype=F64,
-                             device=dev)
-    tile_ops, tile_active, tile_macs = zt(), zt(), zt()
-    e_mod = {m: z1() for m in ("compute", "dram", "sram", "irf", "orf",
-                               "dsp", "special", "noc", "fuse_savings")}
-    ev_hit, ev_noc, ev_miss = z1(), z1(), z1()
-    dram_occ, noc_occ = z1(), z1()
+    def _z1(self):
+        return torch.zeros((self.B, 1), dtype=F64, device=self.dev)
 
-    def noc_seconds(nbytes):
+    def _zt(self):
+        return torch.zeros((self.B, MAX_TILES), dtype=F64, device=self.dev)
+
+    def _noc_seconds(self, nbytes):
+        chip = self.chip
         return noc_transfer_seconds(nbytes, chip["noc_bpc"], chip["hops"],
                                     chip["noc_base_cycles"],
                                     chip["ref_clock_hz"])
 
-    def noc_energy(nbytes):
-        return noc_transfer_energy_pj(nbytes, c.e_noc_pj_per_byte_hop,
-                                      chip["hops"])
+    def _noc_energy(self, nbytes):
+        return noc_transfer_energy_pj(nbytes, self.cm.c.e_noc_pj_per_byte_hop,
+                                      self.chip["hops"])
 
-    for r in rows:
+    def step(self, r: OpRow, owner: torch.Tensor,
+             n_split: torch.Tensor = None, split_axis: torch.Tensor = None,
+             split_mask: torch.Tensor = None) -> None:
+        """Execute row ``r`` placed on ``owner`` ((B, 1) int64, >= 0).
+        Rows whose ``may_split`` is True also take the Eq. 3 placement:
+        ``n_split`` (B, 1) float64, ``split_axis`` (B, 1) int64 and
+        ``split_mask`` (B, MAX_TILES) bool; the others were placed on one
+        tile by construction, so their split arm is not evaluated."""
+        cm, T, chip = self.cm, self.T, self.chip
+        c = cm.c
+        z1 = self._z1
         op, idx = r.op, r.index
-        owner = place["owner"][:, idx:idx + 1]
-        onehot = tidx == owner
+        onehot = self.tidx == owner
+        tile_finish = self.tile_finish
 
         # ---- dependency-ready time + input acquisition ------------------
         t_dep = z1()
         dram_miss = z1()
         extra_noc_s = z1()
         e_noc_in = z1()
-        ns_pred = noc_seconds(r.per_pred_bytes) if r.preds else None
-        ne_pred = noc_energy(r.per_pred_bytes) if r.preds else None
+        ns_pred = self._noc_seconds(r.per_pred_bytes) if r.preds else None
+        ne_pred = self._noc_energy(r.per_pred_bytes) if r.preds else None
         for p in r.preds:
-            t_dep = torch.maximum(t_dep, op_finish[:, p:p + 1])
-            src = cached_at[:, p:p + 1]
+            t_dep = torch.maximum(t_dep, self.op_finish[:, p:p + 1])
+            src = self.cached_at[:, p:p + 1]
             hit = src == owner
             via_noc = (src >= 0) & (src != owner)
             miss = src < 0
             dram_miss = dram_miss + _where(miss, r.per_pred_bytes, 0.0)
             extra_noc_s = extra_noc_s + torch.where(via_noc, ns_pred, 0.0)
             e_noc_in = e_noc_in + torch.where(via_noc, ne_pred, 0.0)
-            ev_hit += hit
-            ev_noc += via_noc
-            ev_miss += miss
+            self.ev_hit += hit
+            self.ev_noc += via_noc
+            self.ev_miss += miss
         dram_rd = op["bytes_w"] + dram_miss \
             + (op["bytes_in"] if not r.preds else 0.0)
         # write-back: outputs fitting the owner's cache partition skip
@@ -309,7 +325,7 @@ def execute_plan(cm: CostModel, T: Dict[str, torch.Tensor],
         # ---- dynamic DRAM bandwidth share --------------------------------
         t_start0 = torch.maximum(_gather(tile_finish, owner), t_dep)
         n_active = torch.clamp(
-            (exists & (tile_finish > t_start0)).sum(
+            (self.exists & (tile_finish > t_start0)).sum(
                 dim=1, keepdim=True).to(F64), min=1.0)
         bw_share = _div(chip["dram_gbps"], n_active)
 
@@ -321,12 +337,11 @@ def execute_plan(cm: CostModel, T: Dict[str, torch.Tensor],
 
         if r.may_split:
             # ---- Eq. 3 split execution (slice_op semantics) -------------
-            k = place["n_split"][:, idx:idx + 1]
-            mask = place["split_mask"][:, idx, :]
+            k = n_split
+            mask = split_mask
             is_split = k > 1.0
             kf = torch.clamp(k, min=1.0)
-            sub = split_op_fields(op, place["split_axis"][:, idx:idx + 1],
-                                  kf)
+            sub = split_op_fields(op, split_axis, kf)
             ex_sub = cm.execute_dynamic(cm.execute_static_mac(T, sub), T,
                                         bw_share, _div(dram_rd, kf),
                                         _div(dram_wr, kf))
@@ -334,9 +349,9 @@ def execute_plan(cm: CostModel, T: Dict[str, torch.Tensor],
             fins_sub = torch.where(mask, starts_sub + ex_sub["seconds"],
                                    -torch.inf)
             slice_out = _div(op["bytes_out"], kf)
-            reduce_s = noc_seconds(slice_out)
+            reduce_s = self._noc_seconds(slice_out)
             fin_split = fins_sub.max(dim=1, keepdim=True).values + reduce_s
-            e_noc_split = (kf - 1.0) * noc_energy(slice_out)
+            e_noc_split = (kf - 1.0) * self._noc_energy(slice_out)
             fin_op = torch.where(is_split, fin_split, fin_single)
 
             tf_single = torch.where(onehot, fin_single, tile_finish)
@@ -344,22 +359,23 @@ def execute_plan(cm: CostModel, T: Dict[str, torch.Tensor],
             tf_split = torch.where(onehot,
                                    torch.maximum(tf_split, fin_split),
                                    tf_split)
-            tile_finish = torch.where(is_split, tf_split, tf_single)
+            self.tile_finish = torch.where(is_split, tf_split, tf_single)
             exec_mask = torch.where(is_split, mask, onehot)
             sec_each = torch.where(is_split, ex_sub["seconds"],
                                    ex["seconds"])
             macs_each = _where(is_split, sub["macs"], op["macs"])
         else:
             fin_op = fin_single
-            tile_finish = torch.where(onehot, fin_single, tile_finish)
+            self.tile_finish = torch.where(onehot, fin_single, tile_finish)
             exec_mask = onehot
             sec_each = ex["seconds"]
             macs_each = op["macs"]
-        tile_ops += exec_mask
-        tile_active += torch.where(exec_mask, sec_each, 0.0)
-        tile_macs += _where(exec_mask, macs_each, 0.0)
+        self.tile_ops += exec_mask
+        self.tile_active += torch.where(exec_mask, sec_each, 0.0)
+        self.tile_macs += _where(exec_mask, macs_each, 0.0)
 
         # ---- per-module chip energy --------------------------------------
+        e_mod = self.e_mod
         for mod, key in _ENERGY_KEYS:
             single_v = ex[key] if key == "e_dram" else _gather(ex[key], owner)
             if r.may_split:
@@ -383,48 +399,58 @@ def execute_plan(cm: CostModel, T: Dict[str, torch.Tensor],
                 dim=1, keepdim=True)
             dram_b_op = torch.where(is_split, split_b, dram_b_op)
             noc_s_op = noc_s_op + torch.where(is_split, reduce_s, 0.0)
-        dram_occ = dram_occ + dram_b_op
-        noc_occ = noc_occ + noc_s_op
+        self.dram_occ = self.dram_occ + dram_b_op
+        self.noc_occ = self.noc_occ + noc_s_op
 
-        op_finish[:, idx:idx + 1] = fin_op
-        fifo_insert(fifo_ops, fifo_bytes, cached_at, owner, idx,
-                    op["bytes_out"], cap_owner)
+        self.op_finish[:, idx:idx + 1] = fin_op
+        fifo_insert(self.fifo_ops, self.fifo_bytes, self.cached_at, owner,
+                    idx, op["bytes_out"], cap_owner)
 
-    makespan = tile_finish.max(dim=1, keepdim=True).values
-    gated = tile_ops <= 0
-    resid = _where(gated, c.power_gate_residual, 1.0)
-    leak_t = torch.where(exists, c.leak_mw_per_mm2 * T["area_mm2"] * makespan
-                         * resid * 1e9, 0.0)
-    leakage = leak_t.sum(dim=1, keepdim=True)
-    energy = (e_mod["compute"] + e_mod["dram"] + e_mod["sram"]
-              + e_mod["irf"] + e_mod["orf"] + e_mod["dsp"]
-              + e_mod["special"] + e_mod["noc"] + leakage
-              - e_mod["fuse_savings"])
-    achieved = torch.where(makespan > 0,
-                           _div(_div(total_macs, makespan), 1e12), 0.0)
-    out = {"latency_s": makespan, "energy_pj": energy,
-           "achieved_tops": achieved, "cache_hits": ev_hit,
-           "cache_noc": ev_noc, "cache_misses": ev_miss,
-           "energy_leakage_pj": leakage}
-    for m in e_mod:
-        out[f"energy_{m}_pj"] = e_mod[m]
+    def finish(self, total_macs: float) -> Dict[str, torch.Tensor]:
+        """The result surface after the last row: (B,) tensors, and
+        ``(B, MAX_TILES)`` / ``(B, max_ops)`` for the per-tile and per-op
+        stats (the reference's ``batch_simulate`` surface)."""
+        c, T, chip, e_mod = self.cm.c, self.T, self.chip, self.e_mod
+        exists = self.exists
+        tile_ops, tile_active = self.tile_ops, self.tile_active
+        makespan = self.tile_finish.max(dim=1, keepdim=True).values
+        gated = tile_ops <= 0
+        resid = _where(gated, c.power_gate_residual, 1.0)
+        leak_t = torch.where(exists, c.leak_mw_per_mm2 * T["area_mm2"]
+                             * makespan * resid * 1e9, 0.0)
+        leakage = leak_t.sum(dim=1, keepdim=True)
+        energy = (e_mod["compute"] + e_mod["dram"] + e_mod["sram"]
+                  + e_mod["irf"] + e_mod["orf"] + e_mod["dsp"]
+                  + e_mod["special"] + e_mod["noc"] + leakage
+                  - e_mod["fuse_savings"])
+        achieved = torch.where(makespan > 0,
+                               _div(_div(total_macs, makespan), 1e12), 0.0)
+        out = {"latency_s": makespan, "energy_pj": energy,
+               "achieved_tops": achieved, "cache_hits": self.ev_hit,
+               "cache_noc": self.ev_noc, "cache_misses": self.ev_miss,
+               "energy_leakage_pj": leakage}
+        for m in e_mod:
+            out[f"energy_{m}_pj"] = e_mod[m]
 
-    # ---- throughput-mode steady state (§3.2) -------------------------------
-    leak_rate = torch.where(exists, c.leak_mw_per_mm2 * T["area_mm2"]
-                            * resid * 1e9, 0.0).sum(dim=1, keepdim=True)
-    out.update(pipeline_bounds(
-        makespan, tile_active.max(dim=1, keepdim=True).values, dram_occ,
-        chip["dram_gbps"], noc_occ))
-    ii = out["ii_s"]
-    out["fill_latency_s"] = makespan
-    out["dram_bytes_per_batch"] = dram_occ
-    out["energy_ss_pj"] = steady_state_energy(energy, leakage, leak_rate, ii)
-    out["achieved_tops_ss"] = torch.where(
-        ii > 0, _div(_div(total_macs, ii), 1e12), 0.0)
-    out["pipeline_depth"] = torch.where(ii > 0, torch.ceil(_div(makespan, ii)),
-                                        1.0)
-    out = {k: v.reshape(-1) for k, v in out.items()}
-    out.update({"op_finish": op_finish, "tile_ops": tile_ops,
-                "tile_active_s": tile_active, "tile_macs": tile_macs,
-                "power_gated": gated, "tile_leakage_pj": leak_t})
-    return out
+        # ---- throughput-mode steady state (§3.2) ---------------------------
+        leak_rate = torch.where(exists, c.leak_mw_per_mm2 * T["area_mm2"]
+                                * resid * 1e9, 0.0).sum(dim=1, keepdim=True)
+        out.update(pipeline_bounds(
+            makespan, tile_active.max(dim=1, keepdim=True).values,
+            self.dram_occ, chip["dram_gbps"], self.noc_occ))
+        ii = out["ii_s"]
+        out["fill_latency_s"] = makespan
+        out["dram_bytes_per_batch"] = self.dram_occ
+        out["energy_ss_pj"] = steady_state_energy(energy, leakage, leak_rate,
+                                                  ii)
+        out["achieved_tops_ss"] = torch.where(
+            ii > 0, _div(_div(total_macs, ii), 1e12), 0.0)
+        out["pipeline_depth"] = torch.where(ii > 0,
+                                            torch.ceil(_div(makespan, ii)),
+                                            1.0)
+        out = {k: v.reshape(-1) for k, v in out.items()}
+        out.update({"op_finish": self.op_finish, "tile_ops": tile_ops,
+                    "tile_active_s": tile_active,
+                    "tile_macs": self.tile_macs, "power_gated": gated,
+                    "tile_leakage_pj": leak_t})
+        return out

@@ -4,7 +4,9 @@ Each wrapper checks shapes, dtypes, devices and contiguity, then takes
 the plain version (``ref``) only for CPU tensors.  For CUDA tensors it
 launches the hand-written kernel or raises: there is no fallback.
 ``launch_counts[name]`` rises by one at each kernel launch and nowhere
-else, so a run can show that it went through the kernel.
+else, so a run can show that it went through the kernel; the scans'
+launchers (``ssm_scan._launch_fwd``, ``_launch_bwd``) add theirs, one a
+launch, so a bf16 scan that runs in groups counts each group.
 
 ``flash_attention`` and ``ssm_scan`` are differentiable.  On CPU tensors
 autograd runs through the plain version.  On CUDA tensors that need a
@@ -187,7 +189,6 @@ class _SsmScan(torch.autograd.Function):
     def forward(ctx, x, dt, a_log, b, c, chunk):
         from .ssm_scan import ssm_scan_cuda
         y = ssm_scan_cuda(x, dt, a_log, b, c, chunk)
-        launch_counts["ssm_scan"] += 1
         ctx.save_for_backward(x, dt, a_log, b, c)
         ctx.chunk = chunk
         return y
@@ -214,9 +215,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if _needs_grad(x, dt, a_log, b, c):
         return _SsmScan.apply(x, dt, a_log, b, c, chunk)
     from .ssm_scan import ssm_scan_cuda
-    out = ssm_scan_cuda(x, dt, a_log, b, c, chunk)
-    launch_counts["ssm_scan"] += 1
-    return out
+    return ssm_scan_cuda(x, dt, a_log, b, c, chunk)
 
 
 def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -237,9 +236,7 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
             y = ref.ssm_scan_ref(*ins, chunk)
             return torch.autograd.grad(y, ins, dy)
     from .ssm_scan import ssm_scan_bwd_cuda
-    grads = ssm_scan_bwd_cuda(x, dt, a_log, b, c, dy, chunk)
-    launch_counts["ssm_scan_bwd"] += 1
-    return grads
+    return ssm_scan_bwd_cuda(x, dt, a_log, b, c, dy, chunk)
 
 
 def horner(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:

@@ -100,7 +100,8 @@ def test_context_key_differs_from_reference():
         != port.context_key()
 
 
-@pytest.mark.parametrize("kw", [dict(backend="scan"), dict(backend="exact"),
+@pytest.mark.parametrize("kw", [dict(backend="scan"),
+                                dict(backend="exact", fidelity="link"),
                                 dict(backend="oracle"),
                                 dict(backend="batched", fidelity="link"),
                                 dict(backend="batched", shard=True),

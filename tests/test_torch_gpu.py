@@ -327,19 +327,36 @@ def test_cuda_ssm_scan_chunk_lengths(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
-def test_cuda_ssm_scan_bf16_limits_raise(cuda):
-    """Head dims the tensor-core kernels do not instantiate (P = 24) raise
-    on the card, forward and backward; nothing falls back to the CUDA-core
-    kernels or the plain version.  (Chunks longer than 128 rows run:
-    test_cuda_ssm_scan_bf16_chunk_256.)"""
-    before = dict(K.launch_counts)
-    x, dt, al, b, c, dy = _ssm_inputs(cuda, (1, 64, 2, 24, 16, 64),
-                                      torch.bfloat16)
-    with pytest.raises(ValueError, match="P in"):
-        K.ssm_scan(x, dt, al, b, c, chunk=64)
-    with pytest.raises(ValueError, match="P in"):
-        K.ssm_scan_bwd(x, dt, al, b, c, dy, chunk=64)
-    assert K.launch_counts == before
+def test_cuda_ssm_scan_bf16_any_p_and_n(cuda):
+    """Head dims and state widths the tensor-core kernels do not
+    instantiate (P 24, 80, 128 at N 160) run in bfloat16 as groups of at
+    most 64 columns and 128 states (``kernels/ssm_scan.py::split_scan``):
+    the forward and the gradients within 5e-2 of the plain version's.  The
+    launchers count their launches, and the counts rise by one per group
+    (``tc_launches``), so every group ran on the tensor-core kernels and
+    nothing fell back to the plain version.  (These shapes raised
+    ValueError before the kernels ran them.)"""
+    from repro_torch.kernels.ssm_scan import tc_launches
+
+    for Pd in (24, 80, 128):
+        shape = (1, 128, 2, Pd, 160, 64)
+        x, dt, al, b, c, dy = _ssm_inputs(cuda, shape, torch.bfloat16)
+        n = tc_launches(Pd, 160)
+        assert n == 2 * -(-Pd // 64)
+        before = dict(K.launch_counts)
+        got = K.ssm_scan(x, dt, al, b, c, chunk=64)
+        want = P.ssm_scan_ref(x, dt, al, b, c, chunk=64)
+        torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                                   atol=5e-2)
+        grads = K.ssm_scan_bwd(x, dt, al, b, c, dy, chunk=64)
+        torch.cuda.synchronize()
+        assert K.launch_counts["ssm_scan"] == before["ssm_scan"] + n
+        assert K.launch_counts["ssm_scan_bwd"] == before["ssm_scan_bwd"] + n
+        ref = [t.clone().requires_grad_() for t in (x, dt, al, b, c)]
+        wants = torch.autograd.grad(P.ssm_scan_ref(*ref, chunk=64), ref, dy)
+        for name, a, w in zip(("x", "dt", "a_log", "b", "c"), grads, wants):
+            assert a.dtype == w.dtype and a.shape == w.shape, (Pd, name)
+            assert _rel_max(a, w) <= 5e-2, (Pd, name, _rel_max(a, w))
 
 
 @pytest.mark.gpu

@@ -110,6 +110,43 @@ def test_ssm_scan_default_chunk_is_the_reference_entry_points(rng):
         assert torch.equal(a, w)
 
 
+@pytest.mark.parametrize("P", [24, 80, 128])
+def test_ssm_scan_pad_and_split_matches_unsplit(rng, P):
+    """The bf16 kernels' pad-and-split plan (P in groups of at most 64
+    columns zero-padded to 16, 32 or 64; N in groups of at most 128
+    states), run on the plain version in float32: y and every gradient
+    within 1e-5 of its largest magnitude of the unsplit plain version's,
+    and ``_tc_args`` takes these shapes."""
+    from repro_torch.kernels import ssm_scan as KS
+
+    N = 160
+    _, tx = _ssm_inputs(rng, 1, 128, 2, P, N, jnp.float32)
+    dy = torch.from_numpy(rng.normal(size=(1, 128, 2, P))
+                          .astype(np.float32))
+    pg, ng, _ = KS._tc_args(tx[0].bfloat16(), tx[3].bfloat16(),
+                            tx[4].bfloat16(), 64)
+    assert len(ng) == 2 and all(w in KS.TC_HEAD_DIMS for *_, w in pg)
+    assert KS.tc_launches(P, N) == len(pg) * 2
+
+    def plain_bwd(x, dt, al, b, c, g, chunk, acc):
+        dx, ddt, da, db, dc = K.ssm_scan_bwd(x, dt, al, b, c, g, chunk)
+        for a, d in zip(acc, (da, db, dc)):
+            a += d
+        return dx, ddt
+
+    def off(a, w):      # by the largest magnitude (ddt reaches hundreds)
+        assert a.shape == w.shape and a.dtype == w.dtype
+        return float((a - w).abs().max() / w.abs().max())
+
+    got = KS.split_scan(K.ssm_scan, *tx, 64)
+    assert off(got, K.ssm_scan(*tx, chunk=64)) <= 1e-5
+    grads = KS.split_scan_bwd(plain_bwd, *tx, dy, 64)
+    wants = K.ssm_scan_bwd(*tx, dy, chunk=64)
+    for name, a, w in zip(("dx", "ddt", "da_log", "db", "dc"), grads,
+                          wants):
+        assert off(a, w) <= 1e-5, (name, off(a, w))
+
+
 def test_wrappers_check_inputs():
     q = torch.zeros((1, 2, 8, 16))
     with pytest.raises(TypeError):

@@ -241,16 +241,16 @@ def run_checkout(root, label):
     return res
 
 
-def run_parent(parent, script=__file__):
-    """Runs ``script --one`` on the checkout ``parent`` and on this one in
-    turns (parent, this, this, parent), each in a process of its own, and
-    returns the result each printed."""
+def run_parent(parent, script=__file__, extra=()):
+    """Runs ``script --one`` (and the arguments ``extra``) on the checkout
+    ``parent`` and on this one in turns (parent, this, this, parent), each
+    in a process of its own, and returns the result each printed."""
     results = []
     for label, root in (("parent", parent), ("this", ROOT), ("this", ROOT),
                         ("parent", parent)):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(script), "--one",
-             os.path.abspath(root), "--label", label],
+             os.path.abspath(root), "--label", label, *extra],
             capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("RESULT ")]
