@@ -106,7 +106,24 @@ script exits non-zero without printing a result):
                 ``pareto_mask_device`` on the card (equal); then the same
                 search with a fresh engine on ``cpu``: the same sampled
                 genomes, GA best genome, Pareto indices and BO optimum, the
-                GA history within rel 1e-9; seconds per stage.
+                GA history within rel 1e-9; seconds per stage;
+19. oracle   -- (right after phase 18) the host ``ChipSim`` oracle and the
+                host compiler beside the card: (a) ``hetero_bls()`` on the
+                six golden workloads in both modes, ``compile_workload`` +
+                ``simulate`` on the host and ``simulate_plans`` on ``cuda``
+                for the same plans (within rel 1e-9 per module, per-tile op
+                counts and gating equal; the oracle's ``golden_dict()``
+                within rtol 1e-6 of the golden files); (b) on phase 7's 64
+                genomes in both modes, ``EvalEngine(exact_mapper=
+                "python")`` on ``cuda`` bit for bit phase 7's card rows,
+                ``backend="oracle"`` within rel 1e-9 of them (ok masks
+                equal) and ``rescore(oracle=True)`` on the first 16 bit for
+                bit the oracle engine; (c) the NVDLA points of Table 2 on
+                the INT8 64x64x64 GEMM through the oracle and the card
+                (within rel 1e-9), with the ratios to the published NVDLA
+                values beside the paper's (printed, not gated); seconds of
+                the host compile, the card's plan execution and the oracle
+                walk, and evaluations/s of both engines.
 
 Then one JSON line describing the kernels (times, launches, bounds) and,
 as the last line, ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
@@ -154,6 +171,11 @@ SEARCH_BO = dict(init_samples=32, rounds=2, batch_per_round=8,
                  candidate_pool=256)
 GOLDEN_WORKLOADS = ["resnet50_int8", "vit_b16_fp16", "llama7b_int4",
                     "snn_vgg9", "hyena_1_3b", "kan"]
+# phase 19: rescore(oracle=True) on the first of phase 7's genomes; the
+# MOSAIC / NVDLA ratios the paper reports in Table 2 (latency, energy, area)
+ORACLE_RESCORE_POPULATION = 16
+NVDLA_PAPER_RATIOS = {"nv_small": (1.08, 1.41, 1.77),
+                      "nv_full": (1.39, 1.19, 1.50)}
 
 # the LM serving path: Jamba-v0.1 at full width, one period of 8 layers
 LM_ARCH = "jamba-v0.1-52b"
@@ -427,8 +449,9 @@ def dse_launches(np, dev):
 
 
 def _dse_phases(torch, np, dev, args, record):
-    """Phases 3-7, 17 and 18, the DSE evaluation path and the search on top
-    of it; returns the kernel line of ``dse_eval``.  Its tensors are freed
+    """Phases 3-7 and 17-19, the DSE evaluation path, the search on top of
+    it and the host oracle beside it; returns the kernel line of
+    ``dse_eval``.  Its tensors are freed
     when it returns."""
     from repro_torch.core.arch import hetero_bls
     from repro_torch.core.compiler.batched_mapper import map_and_simulate
@@ -596,9 +619,11 @@ def _dse_phases(torch, np, dev, args, record):
     # ---- 7. card against CPU, and the golden traces ------------------------
     g2 = random_genomes(np.random.default_rng(2), PARITY_POPULATION)
     worst, rows_equal, rows = 0.0, 0, 0
+    card_rows = {}                      # phase 19 holds its engines to them
     for mode in ("latency", "throughput"):
         cfg = EngineConfig(backend="batched", mode=mode)
-        on_card = EvalEngine(PARITY_WORKLOADS, config=cfg).evaluate(g2)
+        on_card = card_rows[mode] = EvalEngine(PARITY_WORKLOADS,
+                                               config=cfg).evaluate(g2)
         on_cpu = EvalEngine(PARITY_WORKLOADS, config=cfg,
                             device="cpu").evaluate(g2)
         check(np.array_equal(np.isfinite(on_card["latency"]),
@@ -644,10 +669,11 @@ def _dse_phases(torch, np, dev, args, record):
            f"({len(GOLDEN_WORKLOADS)} workloads x 2 modes on cuda) max rel "
            f"err {golden_worst:.3e} (limit 1e-6)")
 
-    # ---- 17, 18. the exact search and the search frontends ------------------
+    # ---- 17, 18, 19. the exact search, the search frontends, the oracle ----
     record["exact"] = _exact_phase(torch, np, dev, args, genomes, res,
                                    record["main_path"], g1, rt)
     record["search"] = _search_phase(torch, np, dev)
+    record["oracle"] = _oracle_phase(torch, np, dev, g2, card_rows)
 
     return {
         "name": "dse_eval", "route": "cuda",
@@ -868,6 +894,223 @@ def _search_phase(torch, np, dev):
            f"{st['skips']}; CPU s: {cpu_secs}; card == CPU: genomes, GA "
            f"best genome, Pareto indices, BO optimum; GA history rel err "
            f"{ga_err:.3e} (limit 1e-9)")
+    return out
+
+# the oracle's per-module energies, as ``simulate_plans`` names them
+_ORACLE_MODULES = ("compute", "dram", "sram", "irf", "orf", "dsp", "special",
+                   "noc", "leakage", "fuse_savings")
+
+
+def _oracle_vs_plans(np, r, res, what):
+    """One ``ChipSim`` result against ``simulate_plans``'s row 0: chip
+    metrics, per-module energy and the pipeline keys within rel 1e-9 (abs
+    1e-9 pJ for a module the run leaves at zero, as
+    tests/test_golden_traces.py holds them), per-tile op counts and gating
+    equal.  Returns the largest relative error."""
+    pairs = [("latency_s", r.latency_s), ("energy_pj", r.energy_pj),
+             ("achieved_tops", r.achieved_tops), ("area_mm2", r.area_mm2),
+             ("peak_tops", r.peak_tops)]
+    pairs += [(f"energy_{m}_pj", getattr(r.energy_breakdown, m))
+              for m in _ORACLE_MODULES]
+    pairs += list((r.pipeline or {}).items())
+    worst = 0.0
+    for k, want in pairs:
+        got = float(res[k][0])
+        diff = abs(got - want)
+        check(diff <= 1e-9 * abs(want) or diff <= 1e-9,
+              f"{what} {k}: card {got!r} vs oracle {want!r}")
+        if want != 0.0:
+            worst = max(worst, diff / abs(want))
+    n = len(r.tiles)
+    check(res["tile_ops"][0][:n].tolist() == [b.ops for b in r.tiles],
+          f"{what}: per-tile op counts differ")
+    check(res["power_gated"][0][:n].tolist()
+          == [b.power_gated for b in r.tiles], f"{what}: power gating differs")
+    active = np.asarray([b.active_s for b in r.tiles])
+    err = np.abs(res["tile_active_s"][0][:n] - active) \
+        / np.maximum(np.abs(active), 1e-300)
+    check(err.max(initial=0.0) <= 1e-9, f"{what}: tile active time rel err "
+          f"{err.max():.3e}")
+    return max(worst, float(err.max(initial=0.0)))
+
+
+def _golden_worst(np, want, got, path=""):
+    """The largest relative difference of two golden payloads; raises past
+    the golden comparator's rtol 1e-6, atol 1e-12 (tests/conftest.py)."""
+    if isinstance(want, dict):
+        check(set(want) == set(got), f"golden {path}: keys differ")
+        return max((_golden_worst(np, want[k], got[k], f"{path}.{k}")
+                    for k in want), default=0.0)
+    if isinstance(want, list):
+        check(len(want) == len(got), f"golden {path}: length differs")
+        return max((_golden_worst(np, a, b, f"{path}[{i}]")
+                    for i, (a, b) in enumerate(zip(want, got))), default=0.0)
+    if isinstance(want, (bool, str)):
+        check(want == got, f"golden {path}: {got!r} vs {want!r}")
+        return 0.0
+    check(np.isclose(got, want, rtol=1e-6, atol=1e-12),
+          f"golden {path}: {got!r} vs {want!r}")
+    return abs(got - want) / max(abs(want), 1e-300)
+
+
+def _oracle_phase(torch, np, dev, g2, card_rows):
+    """Phase 19: the host ``ChipSim`` oracle and the host compiler beside
+    the card -- (a) the golden runs, (b) the per-candidate engines on phase
+    7's genomes, (c) the NVDLA points of Table 2."""
+    from repro_torch.core.arch import hetero_bls
+    from repro_torch.core.calibrate.nvdla import (NVDLA_FULL, NVDLA_SMALL,
+                                                  nvdla_chip)
+    from repro_torch.core.compiler.mapper import map_graph
+    from repro_torch.core.compiler.pipeline import (compile_workload,
+                                                    lower_plan)
+    from repro_torch.core.dse.api import EngineConfig
+    from repro_torch.core.dse.encoding import decode
+    from repro_torch.core.dse.engine import EvalEngine, _prepared_graph
+    from repro_torch.core.ir import OpNode, OpType, Precision, WorkloadGraph
+    from repro_torch.core.simulator.batched import simulate_plans
+    from repro_torch.core.simulator.orchestrator import simulate
+    from repro_torch.core.workloads import build
+
+    secs = {"compile": 0.0, "card": 0.0, "oracle": 0.0}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if key == "card":
+            torch.cuda.synchronize()
+        secs[key] += time.perf_counter() - t0
+        return out
+
+    # ---- (a) the golden runs: oracle, card, golden files -------------------
+    chip = hetero_bls()
+    card_worst, golden_worst, runs = 0.0, 0.0, 0
+    for w in GOLDEN_WORKLOADS:
+        for mode, suffix in (("latency", ""), ("throughput", "_throughput")):
+            plan = timed("compile", lambda: compile_workload(
+                build(w), chip, mode=mode))
+            r = timed("oracle", lambda: simulate(chip, plan))
+            res = timed("card", lambda: simulate_plans(
+                [chip], [lower_plan(plan, chip.num_tiles)], device=dev))
+            check(res["mode"] == mode, f"{w}: mode {res['mode']}")
+            card_worst = max(card_worst, _oracle_vs_plans(
+                np, r, res, f"{w}{suffix}"))
+            with open(os.path.join(ROOT, "tests", "golden",
+                                   f"{w}{suffix}.json")) as fh:
+                golden_worst = max(golden_worst, _golden_worst(
+                    np, json.load(fh), r.golden_dict(), f"{w}{suffix}"))
+            runs += 1
+    golden_secs = dict(secs)
+
+    # ---- (b) the per-candidate engines on phase 7's genomes ----------------
+    chips = [decode(g, f"x{i}") for i, g in enumerate(g2)]
+    t0 = time.perf_counter()
+    for w in PARITY_WORKLOADS:
+        graph = _prepared_graph(w)
+        for c in chips:
+            map_graph(graph, c)
+    compile_s = time.perf_counter() - t0
+    evals = len(g2) * len(PARITY_WORKLOADS)
+    n_re = ORACLE_RESCORE_POPULATION
+    engine_secs, oracle_worst = {}, 0.0
+    for mode in ("latency", "throughput"):
+        card = card_rows[mode]
+        py_eng = EvalEngine(PARITY_WORKLOADS, config=EngineConfig(
+            backend="batched", exact_mapper="python", mode=mode))
+        check(py_eng.device.type == DEVICE, f"engine on {py_eng.device}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        py = py_eng.evaluate(g2)
+        torch.cuda.synchronize()
+        engine_secs[f"python_{mode}"] = time.perf_counter() - t0
+        _same_rows(np, py, card, f"{mode}: python mapper vs phase 7's card "
+                   "rows")
+        t0 = time.perf_counter()
+        ora = EvalEngine(PARITY_WORKLOADS, config=EngineConfig(
+            backend="oracle", mode=mode)).evaluate(g2)
+        engine_secs[f"oracle_{mode}"] = time.perf_counter() - t0
+        check(np.array_equal(np.isfinite(ora["latency"]),
+                             np.isfinite(card["latency"])),
+              f"{mode}: oracle and card ok masks differ")
+        for k in _ROWS:
+            a, b = ora[k], card[k]
+            f = np.isfinite(b)
+            check(np.array_equal(f, np.isfinite(a)), f"{mode} {k} mask")
+            err = np.abs(a[f] - b[f]) / np.maximum(np.abs(b[f]), 1e-300)
+            oracle_worst = max(oracle_worst, float(err.max(initial=0.0)))
+        check(oracle_worst <= 1e-9, f"{mode}: oracle vs card rows rel err "
+              f"{oracle_worst:.3e} > 1e-9")
+        re = EvalEngine(PARITY_WORKLOADS, config=EngineConfig(
+            backend="batched", mode=mode)).rescore(g2[:n_re], oracle=True)
+        _same_rows(np, re, {k: ora[k][:n_re] for k in _ROWS},
+                   f"{mode}: rescore(oracle=True) vs the oracle engine")
+        check((re["meta"]["backend"], re["meta"]["mapper"])
+              == ("oracle", "python"), f"rescore meta {re['meta']}")
+
+    # ---- (c) the NVDLA points of Table 2 -----------------------------------
+    def gemm64():
+        g = WorkloadGraph("gemm64", model_precision=Precision.INT8)
+        g.add(OpNode("gemm", OpType.MATMUL, m=64, k=64, n=64,
+                     precision=Precision.INT8, splittable=False))
+        return g
+
+    nvdla = {}
+    for point in (NVDLA_SMALL, NVDLA_FULL):
+        nv_chip = nvdla_chip(point)
+        plan = compile_workload(gemm64(), nv_chip)
+        r = simulate(nv_chip, plan)
+        res = simulate_plans([nv_chip], [lower_plan(plan, nv_chip.num_tiles)],
+                             device=dev)
+        _oracle_vs_plans(np, r, res, point.name)
+        mosaic = {"latency_us": r.latency_s * 1e6,
+                  "energy_nj": r.energy_pj * 1e-3, "area_mm2": r.area_mm2,
+                  "tops_per_w": r.tops_per_w}
+        ratio = {"latency": mosaic["latency_us"] / point.latency_us,
+                 "energy": mosaic["energy_nj"] / point.energy_nj,
+                 "area": mosaic["area_mm2"] / point.area_mm2}
+        nvdla[point.name] = {"mosaic": mosaic, "ratio": ratio,
+                             "paper_ratio": dict(zip(
+                                 ("latency", "energy", "area"),
+                                 NVDLA_PAPER_RATIOS[point.name]))}
+
+    out = {"golden_runs": runs, "card_vs_oracle_max_rel_err": card_worst,
+           "golden_max_rel_err": golden_worst, "golden_secs": golden_secs,
+           "compile_s": compile_s, "engine_secs": engine_secs,
+           "oracle_vs_card_rows_max_rel_err": oracle_worst,
+           "python_evals_per_s": {m: evals / engine_secs[f"python_{m}"]
+                                  for m in ("latency", "throughput")},
+           "oracle_evals_per_s": {m: evals / engine_secs[f"oracle_{m}"]
+                                  for m in ("latency", "throughput")},
+           "nvdla": nvdla}
+    nv = "; ".join(
+        f"{n}: {v['mosaic']['latency_us']:.4f} us, "
+        f"{v['mosaic']['energy_nj']:.4f} nJ, {v['mosaic']['area_mm2']:.4f} "
+        f"mm^2, {v['mosaic']['tops_per_w']:.4f} TOPS/W, MOSAIC/NVDLA "
+        f"latency {v['ratio']['latency']:.3f} (paper "
+        f"{v['paper_ratio']['latency']:.2f}), energy "
+        f"{v['ratio']['energy']:.3f} ({v['paper_ratio']['energy']:.2f}), "
+        f"area {v['ratio']['area']:.3f} ({v['paper_ratio']['area']:.2f})"
+        for n, v in nvdla.items())
+    es = engine_secs
+    _phase(19, "oracle", f"(a) hetero_bls x {len(GOLDEN_WORKLOADS)} golden "
+           f"workloads x 2 modes: simulate_plans on {dev} within rel "
+           f"{card_worst:.3e} of the host ChipSim (limit 1e-9), tile ops and "
+           f"gating equal, golden_dict() max rel err {golden_worst:.3e} "
+           f"(limit 1e-6); host compile {golden_secs['compile']:.3f} s, card "
+           f"plan execution {golden_secs['card']:.3f} s, oracle walk "
+           f"{golden_secs['oracle']:.3f} s. (b) {len(g2)} genomes x "
+           f"{len(PARITY_WORKLOADS)} workloads: map_graph alone "
+           f"{compile_s:.3f} s; python-mapper engine on {dev} "
+           f"{es['python_latency']:.3f} s / {es['python_throughput']:.3f} s "
+           f"(latency / throughput; "
+           f"{out['python_evals_per_s']['latency']:.1f} / "
+           f"{out['python_evals_per_s']['throughput']:.1f} evaluations/s), "
+           f"bit for bit phase 7's card rows; oracle engine "
+           f"{es['oracle_latency']:.3f} s / {es['oracle_throughput']:.3f} s "
+           f"({out['oracle_evals_per_s']['latency']:.1f} / "
+           f"{out['oracle_evals_per_s']['throughput']:.1f} evaluations/s), "
+           f"max rel err {oracle_worst:.3e} (limit 1e-9), ok masks equal; "
+           f"rescore(oracle=True) on {n_re} bit for bit. (c) NVDLA INT8 "
+           f"64x64x64 GEMM, oracle == card within 1e-9: {nv}")
     return out
 
 

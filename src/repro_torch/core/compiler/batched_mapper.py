@@ -41,9 +41,9 @@ from ..arch import MAX_TILES
 from ..calibrate.asap7 import CalibrationTable, DEFAULT_CALIB
 from ..ir import OpClass
 from ..simulator.batched import OpRow, PlanExecutor, op_rows, place_configs
-from ..simulator.costs import (F64, FIDELITIES, _div, cost_model,
-                               noc_transfer_seconds, split_op_fields)
-from ..simulator.orchestrator import SCHEDULE_MODES
+from ..simulator.costs import (F64, _div, cost_model, noc_transfer_seconds,
+                               split_op_fields)
+from ..simulator.orchestrator import SCHEDULE_MODES, check_fidelity
 
 __all__ = ["batched_map", "map_and_simulate", "search_population",
            "search_and_simulate", "place_configs", "map_placements",
@@ -273,13 +273,7 @@ def _check_mode_fidelity(what: str, mode: str, fidelity: str) -> None:
     if mode not in SCHEDULE_MODES:
         raise ValueError(f"{what} cannot model schedule mode {mode!r}; "
                          f"supported modes: {SCHEDULE_MODES}")
-    if fidelity not in FIDELITIES:
-        raise ValueError(f"fidelity must be one of {FIDELITIES}, "
-                         f"got {fidelity!r}")
-    if fidelity != "aggregate":
-        raise NotImplementedError(
-            "fidelity='link' is not ported yet: ROADMAP.md queue item "
-            "A5-link (the link-fidelity tier)")
+    check_fidelity(fidelity)
 
 
 def _prepare(ws, cfgs, calib, device, placed):

@@ -1,27 +1,33 @@
 """Cache-aware DSE evaluation engine on torch -- the search's one hot path.
 
-Port of ``repro/core/dse/engine.py`` for the two compile-free exact
-backends, ``"exact"`` and ``"batched"``.  Both score every cache miss
-with one ``compiler.batched_mapper.search_population`` call per
-micro-batch over all the workloads (the exact Eq. 1-3 mapping and the
-batched plan executor in one pass per workload, returning only the
-mode's three metric columns); in the reference they are two programs
-with the same results, so the two names share memo keys.  The
-engine keeps the reference's three host caches: the per-workload
-preparation cache (``prepared_workload``), the genome memo behind the
-``ResultStore`` interface (keys are ``mode:`` + canonical genome bytes),
-and the vectorized genome -> config stacking (``genomes_to_configs``,
-bitwise the reference's).
+Port of ``repro/core/dse/engine.py``.  The compile-free exact backends,
+``"exact"`` and ``"batched"``, score every cache miss with one
+``compiler.batched_mapper.search_population`` call per micro-batch over
+all the workloads (the exact Eq. 1-3 mapping and the batched plan
+executor in one pass per workload, returning only the mode's three
+metric columns); in the reference they are two programs with the same
+results, so the two names share memo keys.  ``exact_mapper="python"``
+compiles each candidate on the host instead (``map_graph`` ->
+``emit_schedule`` -> ``lower_plan``) and executes the plan tables with
+``simulator.batched.batch_simulate`` on the engine's device;
+``backend="oracle"`` and ``rescore(oracle=True)`` walk the host
+``ChipSim`` on the same placements.  The engine keeps the reference's
+three host caches: the per-workload preparation cache
+(``prepared_workload``, and ``_prepared_graph`` for the host compiler),
+the genome memo behind the ``ResultStore`` interface (keys are ``mode:``
++ canonical genome bytes), and the vectorized genome -> config stacking
+(``genomes_to_configs``, bitwise the reference's).
 
 ``EvalEngine(workloads, config=EngineConfig(...), device=None)`` runs on
 ``cuda`` and raises without a card unless ``device="cpu"`` is passed.
 Combinations that are not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md queue item: ``backend`` ``scan`` / ``oracle``,
-``exact_mapper="python"``, ``fidelity="link"`` and ``shard=True``.  The
-reference's deprecated per-knob constructor arguments are not ported.
+naming their ROADMAP.md queue item: ``backend="scan"``,
+``fidelity="link"`` and ``shard=True``.  The reference's deprecated
+per-knob constructor arguments are not ported.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import time
@@ -33,10 +39,18 @@ from ...device import resolve_device
 from ..arch import KNOB_GRID, MAX_TILE_TYPES, MAX_TILES, prec_mask
 from ..calibrate.asap7 import CalibrationTable, DEFAULT_CALIB
 from ..compiler.batched_mapper import search_population
+from ..compiler.fusion import fuse
+from ..compiler.mapper import UnmappableError, map_graph
+from ..compiler.pipeline import lower_plan
+from ..compiler.precision import assign_precision
+from ..compiler.schedule import emit_schedule
 from ..simulator.batched import CHIP_KEYS as _CHIP_KEYS
-from ..simulator.batched import place_configs
+from ..simulator.batched import (batch_simulate, place_configs,
+                                 stack_plan_tables)
 from ..simulator.costs import grid_dims
-from ..simulator.orchestrator import CACHE_FRAC, SCHEDULE_MODES, noc_hops
+from ..simulator.orchestrator import (CACHE_FRAC, SCHEDULE_MODES,
+                                      check_fidelity, noc_hops)
+from ..simulator.orchestrator import simulate as oracle_simulate
 from ..workloads import build
 from .api import BACKENDS, META_VERSION, EngineConfig, context_digest
 from .batch_eval import prepare_configs, prepare_workload
@@ -83,8 +97,20 @@ _MODE_KEYS = {
 # configurations this slice does not run yet, with their ROADMAP.md item
 _UNPORTED_BACKENDS = {
     "scan": "A8 (the scan backend, batch_eval's in-scan mapping)",
-    "oracle": "A4 (the ChipSim oracle)",
 }
+
+
+@functools.lru_cache(maxsize=128)
+def _prepared_graph(name: str, aggressive_int4: bool = False,
+                    enable_fusion: bool = True):
+    """Config-independent compiler passes 1-2 on one workload, cached so
+    the per-candidate paths re-run only the per-chip mapping.  Callers
+    must treat the returned graph as read-only (map_graph does)."""
+    g = copy.deepcopy(build(name))
+    g = assign_precision(g, aggressive_int4=aggressive_int4)
+    if enable_fusion:
+        g = fuse(g)
+    return g
 
 
 # =============================================================================
@@ -387,20 +413,14 @@ class EvalEngine:
                 f"backend={config.backend!r} is not ported yet: ROADMAP.md "
                 f"queue item {_UNPORTED_BACKENDS[config.backend]}; use "
                 f"backend='exact' or 'batched'")
-        if config.exact_mapper != "batched":
-            raise NotImplementedError(
-                "exact_mapper='python' is not ported yet: ROADMAP.md queue "
-                "item A3 (the host compiler's map_graph)")
-        if config.fidelity != "aggregate":
-            raise NotImplementedError(
-                "fidelity='link' is not ported yet: ROADMAP.md queue item "
-                "A5 (the link-fidelity tier)")
+        check_fidelity(config.fidelity)
         if config.shard:
             raise NotImplementedError(
                 "shard=True has no counterpart on one card yet: ROADMAP.md "
                 "queue item A7")
         self.device = resolve_device(device)
         self.config = config
+        self.exact_mapper = config.exact_mapper
         self.mode = config.mode
         self.fidelity = config.fidelity
         self.workloads = list(workloads)
@@ -471,12 +491,16 @@ class EvalEngine:
         return {"tile": {k: v[idx] for k, v in cfgs["tile"].items()},
                 "chip": {k: v[idx] for k, v in cfgs["chip"].items()}}
 
-    def _simulate(self, cfgs, mode: str):
-        """(n, W) lat/en/tw for a config stack on this engine's device:
-        one ``search_population`` call over all the workloads, fetching
-        only the mode's three columns (both backends).  Unmappable
-        (genome, workload) pairs score inf latency/energy and 0 TOPS/W."""
+    def _simulate(self, cfgs, genomes: np.ndarray, mode: str,
+                  oracle: Optional[bool] = None):
+        """(n, W) lat/en/tw for a config stack (and its genomes) through
+        this engine's backend, or the oracle when ``oracle`` says so.
+        Unmappable (genome, workload) pairs score inf latency/energy and 0
+        TOPS/W."""
         self.stats.dispatches += 1
+        oracle = self.backend == "oracle" if oracle is None else oracle
+        if oracle or self.exact_mapper == "python":
+            return self._simulate_per_candidate(cfgs, genomes, mode, oracle)
         lkey, ekey, akey = _MODE_KEYS[mode]
         n, W = len(cfgs["chip"]["chip_area"]), len(self.workloads)
         lat = np.full((n, W), np.inf)
@@ -495,6 +519,59 @@ class EvalEngine:
             en[ok, j] = e[ok]
             power = e[ok] * 1e-12 / np.maximum(l[ok], 1e-30)
             tw[ok, j] = res[akey][ok] / np.maximum(power, 1e-30)
+        return lat, en, tw
+
+    def _simulate_per_candidate(self, cfgs, genomes: np.ndarray, mode: str,
+                                oracle: bool):
+        """The per-candidate exact paths: ``map_graph`` on each decoded
+        chip, then either the plan tables through ``batch_simulate`` on
+        this engine's device (``exact_mapper="python"``; the chips'
+        fields come from ``cfgs``, the stack the batched backend scores,
+        so the two agree bit for bit), or the host ``ChipSim`` walk of
+        each plan (``oracle``)."""
+        lkey, ekey, akey = _MODE_KEYS[mode]
+        chips = [decode(g, f"x{i}") for i, g in enumerate(genomes)]
+        n, W = len(chips), len(self.workloads)
+        lat = np.full((n, W), np.inf)
+        en = np.full((n, W), np.inf)
+        tw = np.zeros((n, W))
+        for j, wname in enumerate(self.workloads):
+            g = _prepared_graph(wname, self.aggressive_int4,
+                                self.enable_fusion)
+            plans, rows = [], []
+            for i, chip in enumerate(chips):
+                try:
+                    placements = map_graph(g, chip, self.calib)
+                except UnmappableError:
+                    continue
+                plans.append(emit_schedule(g, placements, mode=mode))
+                rows.append(i)
+            if not rows:
+                continue
+            if oracle:
+                for i, plan in zip(rows, plans):
+                    r = oracle_simulate(chips[i], plan, self.calib,
+                                        fidelity=self.fidelity)
+                    if mode == "throughput":
+                        lat[i, j] = r.pipeline["ii_s"]
+                        en[i, j] = r.pipeline["energy_ss_pj"]
+                        a = r.pipeline["achieved_tops_ss"]
+                    else:
+                        lat[i, j], en[i, j] = r.latency_s, r.energy_pj
+                        a = r.achieved_tops
+                    power = en[i, j] * 1e-12 / max(lat[i, j], 1e-30)
+                    tw[i, j] = a / max(power, 1e-30)
+                continue
+            tables = [lower_plan(p, chips[i].num_tiles)
+                      for i, p in zip(rows, plans)]
+            res = batch_simulate(stack_plan_tables(tables),
+                                 self._take(cfgs, np.asarray(rows)),
+                                 self.calib, mode=mode, device=self.device)
+            l, e = res[lkey], res[ekey]
+            lat[rows, j] = l
+            en[rows, j] = e
+            power = e * 1e-12 / np.maximum(l, 1e-30)
+            tw[rows, j] = res[akey] / np.maximum(power, 1e-30)
         return lat, en, tw
 
     def _check_mode(self, mode: Optional[str]) -> str:
@@ -559,7 +636,7 @@ class EvalEngine:
         for s in range(0, len(miss_idx), self.batch):
             chunk = miss_idx[s:s + self.batch]
             l, e, t = self._simulate(self._take(cfgs, np.asarray(chunk)),
-                                     mode)
+                                     genomes[chunk], mode)
             for r, i in enumerate(chunk):
                 # NaN anywhere (or a non-finite TOPS/W) is cost-model
                 # corruption and must not be cached; unmappable rows
@@ -594,19 +671,19 @@ class EvalEngine:
 
     def rescore(self, genomes: np.ndarray, oracle: bool = False,
                 mode: Optional[str] = None) -> Dict[str, np.ndarray]:
-        """Exact re-scoring through the search, bypassing the memo.
-        ``oracle=True`` (the ChipSim walk) is not ported yet."""
-        if oracle:
-            raise NotImplementedError(
-                "rescore(oracle=True) is not ported yet: ROADMAP.md queue "
-                "item A4 (the ChipSim oracle)")
+        """Exact re-scoring through this engine's exact mapper (the
+        compile-free search by default, ``exact_mapper="python"`` the
+        per-candidate host compile), or the ``ChipSim`` walk with
+        ``oracle=True``; bypasses the memo."""
         mode = self._check_mode(mode)
         genomes = np.asarray(genomes, dtype=np.int64).reshape(-1, GENOME_LEN)
-        lat, en, tw = self._simulate(self._configs(genomes), mode)
+        lat, en, tw = self._simulate(self._configs(genomes), genomes, mode,
+                                     oracle=oracle)
         return {"latency": lat, "energy": en, "tops_w": tw,
                 "area": self.areas(genomes),
                 "meta": {"meta_version": META_VERSION,
-                         "backend": "batched", "mapper": "batched",
+                         "backend": "oracle" if oracle else "batched",
+                         "mapper": "python" if oracle else self.exact_mapper,
                          "mode": mode, "fidelity": self.fidelity,
                          "requests": len(genomes), "hits": 0,
                          "misses": len(genomes), "skips": 0,
@@ -626,7 +703,7 @@ class EvalEngine:
         ``buckets`` is the reference's signature; the port has no batch
         shapes to compile."""
         g = np.zeros((1, GENOME_LEN), np.int64)
-        self._simulate(self._configs(g), self.mode)
+        self._simulate(self._configs(g), g, self.mode)
 
     def areas(self, genomes: np.ndarray) -> np.ndarray:
         """Chip areas only -- no simulation, no cache interaction (both

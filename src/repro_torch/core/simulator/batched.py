@@ -22,28 +22,36 @@ ported; the link tier is not yet.
 
 State tensors are updated in place (the reference's carry is
 immutable); nothing outside the ``PlanExecutor`` holds them.
+
+Two kinds of caller feed the executor.  The batched mappers
+(``compiler.batched_mapper``) place each row as they go.  The plan-table
+surface (``stack_plan_tables``, ``batch_simulate``, ``simulate_plans``)
+executes plans compiled on the host (``compiler.pipeline.lower_plan``):
+candidates whose op tables are equal share one executor, and each
+group's placement arrays are uploaded once.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ...device import resolve_device
 from ..arch import MAX_TILES, ChipConfig
 from ..calibrate.asap7 import CalibrationTable, DEFAULT_CALIB
-from ..ir import OpClass
+from ..ir import OpClass, PlanTensor
 from .area import chip_area, tile_area
 from .costs import (ACT_CACHE_SLOTS, CACHE_FRAC, F64, OP_COST_KEYS,
-                    CostModel, _div, _where, grid_dims, noc_transfer_energy_pj,
-                    noc_transfer_seconds, pipeline_bounds, split_op_fields,
-                    steady_state_energy)
-from .orchestrator import noc_hops
+                    CostModel, _div, _where, cost_model, grid_dims,
+                    noc_transfer_energy_pj, noc_transfer_seconds,
+                    pipeline_bounds, split_op_fields, steady_state_energy)
+from .orchestrator import SCHEDULE_MODES, check_fidelity, noc_hops
 
-__all__ = ["stack_chip_configs", "place_configs", "fifo_insert",
-           "PlanExecutor", "op_rows", "OpRow", "TILE_KEYS",
-           "CHIP_KEYS"]
+__all__ = ["stack_chip_configs", "stack_plan_tables", "batch_simulate",
+           "simulate_plans", "place_configs", "fifo_insert",
+           "PlanExecutor", "op_rows", "OpRow", "TILE_KEYS", "CHIP_KEYS"]
 
 TILE_KEYS = ("exists", "num_macs", "rows", "cols", "engine", "prec_mask",
              "asym_mac", "sparsity", "dataflow", "sram_kb", "dsp_lanes",
@@ -52,6 +60,12 @@ TILE_KEYS = ("exists", "num_macs", "rows", "cols", "engine", "prec_mask",
              "area_mm2", "max_prec")
 CHIP_KEYS = ("dram_gbps", "hops", "noc_bpc", "noc_base_cycles",
              "ref_clock_hz", "grid_w", "grid_h", "torus", "dram_channels")
+
+# the per-op fields of a stacked plan table (the reference's, and
+# ``splittable``, which the executor's split test reads)
+_OP_TABLE_KEYS = OP_COST_KEYS + (
+    "valid", "fused", "num_preds", "per_pred_bytes", "fused_lane_ops",
+    "fused_refund_bytes", "splittable")
 
 _ENERGY_KEYS = (("compute", "e_compute"), ("dram", "e_dram"),
                 ("sram", "e_sram"), ("irf", "e_irf"), ("orf", "e_orf"),
@@ -108,6 +122,43 @@ def stack_chip_configs(chips: Sequence[ChipConfig],
                                      for t in inst) / 1e12
         chip_f["chip_area"][b] = chip_area(chip, calib)
     return {"tile": tile_f, "chip": chip_f}
+
+
+def stack_plan_tables(tables: Sequence[PlanTensor]) -> Dict[str, np.ndarray]:
+    """Stack per-candidate plan tables into (B, max_ops, ...) arrays.
+
+    All tables must share ``max_ops`` (lower them with the same bucket)
+    and schedule mode; they may come from different workloads.  Split
+    masks are padded from each chip's ``num_tiles`` to MAX_TILES.
+    """
+    if not tables:
+        raise ValueError("stack_plan_tables needs at least one plan table")
+    caps = {t.max_ops for t in tables}
+    if len(caps) != 1:
+        raise ValueError(f"plan tables disagree on max_ops: {sorted(caps)}")
+    (cap,) = caps
+    modes = {t.mode for t in tables}
+    if len(modes) != 1:
+        raise ValueError(f"plan tables disagree on schedule mode: "
+                         f"{sorted(modes)}")
+    B = len(tables)
+    out: Dict[str, np.ndarray] = {}
+    for f in _OP_TABLE_KEYS:
+        src = [t.aux[f] if f in t.aux else t.ops.arrays[f] for t in tables]
+        out[f] = np.stack([np.asarray(a, np.float64) for a in src])
+    out["preds"] = np.stack([t.ops.preds for t in tables]).astype(np.int32)
+    out["owner"] = np.stack([t.owner for t in tables]).astype(np.int32)
+    out["n_split"] = np.stack([t.n_split for t in tables]).astype(np.float64)
+    out["split_axis"] = np.stack([t.split_axis
+                                  for t in tables]).astype(np.int32)
+    mask = np.zeros((B, cap, MAX_TILES), np.float64)
+    for b, t in enumerate(tables):
+        mask[b, :, :t.split_mask.shape[1]] = t.split_mask
+    out["split_mask"] = mask
+    out["total_macs"] = np.asarray([t.aux["total_macs"] for t in tables],
+                                   np.float64)
+    out["mode"] = modes.pop()
+    return out
 
 
 def place_configs(cfgs: Dict[str, Dict[str, np.ndarray]],
@@ -454,3 +505,120 @@ class PlanExecutor:
                     "tile_macs": self.tile_macs, "power_gated": gated,
                     "tile_leakage_pj": leak_t})
         return out
+
+
+# =============================================================================
+# the plan-table surface: host-compiled plans on the executor
+# =============================================================================
+
+def _plan_groups(plans: Dict[str, np.ndarray]) -> List[np.ndarray]:
+    """Candidate indices grouped by equal op tables (workload fields,
+    predecessors and total MACs), in order of first appearance."""
+    B = plans["op_type"].shape[0]
+    keys: Dict[bytes, List[int]] = {}
+    fields = [plans[f] for f in _OP_TABLE_KEYS + ("preds", "total_macs")]
+    for b in range(B):
+        key = b"".join(np.ascontiguousarray(a[b]).tobytes() for a in fields)
+        keys.setdefault(key, []).append(b)
+    return [np.asarray(v, np.int64) for v in keys.values()]
+
+
+def _group_rows(plans: Dict[str, np.ndarray], b: int) -> List[OpRow]:
+    """The active op rows of candidate ``b``'s table (``op_rows`` on its
+    fields)."""
+    ws = {f: plans[f][b] for f in _OP_TABLE_KEYS}
+    ws["preds"] = plans["preds"][b]
+    return op_rows(ws)
+
+
+def _check_placements(plans: Dict[str, np.ndarray], idx: np.ndarray,
+                      rows: Sequence[OpRow]) -> None:
+    """Every active row has an owner, and only rows the executor can split
+    (``OpRow.may_split``, ``map_graph``'s own split test) are split."""
+    owner, n_split = plans["owner"][idx], plans["n_split"][idx]
+    for r in rows:
+        if (owner[:, r.index] < 0).any():
+            raise ValueError(f"op {r.index} has no owner tile in some plan")
+        if not r.may_split and (n_split[:, r.index] > 1).any():
+            raise ValueError(
+                f"op {r.index} is split, but only a splittable MAC op with "
+                f"MACs can be (map_graph's Eq. 3 test)")
+
+
+def batch_simulate(plans: Dict[str, np.ndarray],
+                   cfgs: Dict[str, Dict[str, np.ndarray]],
+                   calib: CalibrationTable = DEFAULT_CALIB,
+                   mode: Optional[str] = None,
+                   fidelity: str = "aggregate",
+                   device=None) -> Dict[str, np.ndarray]:
+    """Execute stacked plan tables against stacked chip configs.
+
+    ``plans`` comes from ``stack_plan_tables`` (candidate b's plan must
+    target candidate b's chip); ``cfgs`` from ``stack_chip_configs`` (or
+    the DSE engine's vectorized genome stack).  Candidates whose op tables
+    are equal run through one ``PlanExecutor`` (one ``step`` per active
+    row, then ``finish``) on ``device`` (default: the card), with their
+    placement arrays uploaded once; the rows are scattered back in order.
+    Returns the reference's surface as numpy: (B,) ``latency_s``,
+    ``energy_pj``, ``achieved_tops``, per-module ``energy_*_pj``, cache
+    event counts, the throughput-mode keys (``ii_s``, ``energy_ss_pj``,
+    ...), (B, MAX_TILES) per-tile stats, (B, max_ops) ``op_finish``,
+    ``area_mm2``, ``peak_tops`` and ``mode``.
+
+    ``mode`` defaults to the tables' stamped mode; a mode outside
+    ``SCHEDULE_MODES`` raises, and so does ``fidelity="link"`` (not
+    ported).
+    """
+    mode = mode if mode is not None else plans.get("mode", "latency")
+    if mode not in SCHEDULE_MODES:
+        raise ValueError(
+            f"batched executor cannot model schedule mode {mode!r}; "
+            f"supported modes: {SCHEDULE_MODES}")
+    check_fidelity(fidelity)
+    device = resolve_device(device)
+    cm = cost_model(calib, device)
+    B, max_ops = plans["op_type"].shape
+    res: Dict[str, np.ndarray] = {}
+    for idx in _plan_groups(plans):
+        rows = _group_rows(plans, int(idx[0]))
+        _check_placements(plans, idx, rows)
+        T, chip = place_configs(
+            {"tile": {k: cfgs["tile"][k][idx] for k in TILE_KEYS},
+             "chip": {k: cfgs["chip"][k][idx] for k in CHIP_KEYS}}, device)
+        owner, n_split, axis, mask = (
+            torch.as_tensor(np.ascontiguousarray(a), dtype=dt).to(device)
+            for a, dt in ((plans["owner"][idx], torch.long),
+                          (plans["n_split"][idx], F64),
+                          (plans["split_axis"][idx], torch.long),
+                          (plans["split_mask"][idx] > 0, torch.bool)))
+        ex = PlanExecutor(cm, T, chip, max_ops)
+        for r in rows:
+            i = r.index
+            if r.may_split:
+                ex.step(r, owner[:, i:i + 1], n_split[:, i:i + 1],
+                        axis[:, i:i + 1], mask[:, i, :])
+            else:
+                ex.step(r, owner[:, i:i + 1])
+        out = ex.finish(float(plans["total_macs"][idx[0]]))
+        for k, v in out.items():
+            v = v.cpu().numpy()
+            if k not in res:
+                res[k] = np.zeros((B,) + v.shape[1:], v.dtype)
+            res[k][idx] = v
+    res["area_mm2"] = cfgs["chip"]["chip_area"]
+    res["peak_tops"] = cfgs["chip"]["peak_tops"]
+    res["mode"] = mode
+    return res
+
+
+def simulate_plans(chips: Sequence[ChipConfig], tables: Sequence[PlanTensor],
+                   calib: CalibrationTable = DEFAULT_CALIB,
+                   fidelity: str = "aggregate",
+                   device=None) -> Dict[str, np.ndarray]:
+    """Stack ``chips`` and their ``tables`` and execute them on
+    ``device`` (default: the card)."""
+    if len(chips) != len(tables):
+        raise ValueError("one plan table per chip required")
+    return batch_simulate(stack_plan_tables(tables),
+                          stack_chip_configs(chips, calib), calib,
+                          fidelity=fidelity, device=device)

@@ -30,12 +30,18 @@ behaviours would otherwise change bits and are handled here:
 * ``2.0 ** tensor`` goes through ``pow``; the precision-bit test uses a
   table of exact powers of two instead.
 
+This module also owns the activation-cache semantics (§3.3.4): a
+per-tile FIFO bounded in bytes (``CACHE_FRAC`` of SRAM) and entries
+(``ACT_CACHE_SLOTS``).  ``ActivationCache`` is the host reference the
+``ChipSim`` oracle walks with; ``simulator.batched.fifo_insert`` is its
+tensor mirror for the batched executors.
+
 The link-fidelity helpers (``xy_route_link_mask``,
-``dram_channel_one_hot``) and the ``ActivationCache`` reference class
-are not ported yet; ``simulator.batched.fifo_insert`` is the cache.
+``dram_channel_one_hot``) are not ported yet (ROADMAP.md A5-link).
 """
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Dict, Optional, Union
 
@@ -51,7 +57,7 @@ __all__ = [
     "CACHE_FRAC", "ACT_CACHE_SLOTS", "ACC_BYTES", "DSP_OPS_PER_ELEM",
     "DSP_OPS_TABLE", "SFU_NEED", "TILE_COST_KEYS", "OP_COST_KEYS",
     "COST_MODEL_VERSION", "FIDELITIES", "MAX_DRAM_CHANNELS", "MAX_LINKS",
-    "CostModel", "cost_model", "noc_transfer_seconds",
+    "CostModel", "cost_model", "ActivationCache", "noc_transfer_seconds",
     "noc_transfer_energy_pj", "split_op_fields", "grid_dims",
     "pipeline_bounds", "steady_state_energy",
 ]
@@ -144,7 +150,7 @@ def _div(a, b):
         return torch.div(_full(b, a), b)
     if _t(a):
         return torch.div(a, _full(a, b))
-    return np.divide(np.float64(a), b)
+    return np.divide(np.asarray(a, np.float64), b)
 
 
 def _ceil(x):
@@ -903,3 +909,39 @@ def cost_model(calib: CalibrationTable,
     """Cached CostModel factory, one per (calibration, device); ``None``
     is the card (``device.resolve_device``)."""
     return _cached_model(calib, str(resolve_device(device)))
+
+
+# =============================================================================
+# activation cache (§3.3.4): byte- and slot-bounded FIFO, host reference
+# =============================================================================
+
+class ActivationCache:
+    """Per-tile FIFO activation cache.
+
+    Holds at most ``ACT_CACHE_SLOTS`` producer outputs totalling at most
+    ``cap_bytes``; inserting evicts oldest-first until the new output fits
+    (outputs larger than the capacity are never inserted).  Mirrored
+    bitwise by ``simulator.batched.fifo_insert`` -- keep the two in sync.
+    """
+
+    def __init__(self, tile_index: int, cap_bytes: float,
+                 slots: int = ACT_CACHE_SLOTS):
+        self.tile_index = tile_index
+        self.cap = cap_bytes
+        self.slots = slots
+        self.entries: collections.deque = collections.deque()  # (op, bytes)
+        self.used = 0.0
+
+    def insert(self, op_idx: int, nbytes: float,
+               cached_at: Dict[int, int]) -> None:
+        """Insert ``op_idx``'s output, updating the shared op->tile map."""
+        if nbytes > self.cap:
+            return
+        while self.entries and (self.used + nbytes > self.cap
+                                or len(self.entries) == self.slots):
+            old_op, old_b = self.entries.popleft()
+            self.used -= old_b
+            cached_at.pop(old_op, None)
+        self.entries.append((op_idx, nbytes))
+        self.used += nbytes
+        cached_at[op_idx] = self.tile_index

@@ -1,8 +1,9 @@
 """PyTorch port, engine: ``EvalEngine(backend="batched")`` on the CPU
 scores what the JAX engine scores (latency bitwise, the other columns
-within rel 1e-9), keeps the memo and ``meta`` contract, keys its store
-apart from the reference, refuses what is not ported, and refuses to run
-without a card unless ``device="cpu"`` is asked for."""
+within rel 1e-9), ``rescore(oracle=True)`` bit for bit, keeps the memo
+and ``meta`` contract, keys its store apart from the reference, refuses
+what is not ported, and refuses to run without a card unless
+``device="cpu"`` is asked for."""
 import numpy as np
 import pytest
 
@@ -102,11 +103,9 @@ def test_context_key_differs_from_reference():
 
 @pytest.mark.parametrize("kw", [dict(backend="scan"),
                                 dict(backend="exact", fidelity="link"),
-                                dict(backend="oracle"),
+                                dict(backend="oracle", fidelity="link"),
                                 dict(backend="batched", fidelity="link"),
-                                dict(backend="batched", shard=True),
-                                dict(backend="batched",
-                                     exact_mapper="python")])
+                                dict(backend="batched", shard=True)])
 def test_unported_configurations_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P_engine.EvalEngine(WORKLOADS, config=P_api.EngineConfig(**kw),
@@ -114,8 +113,20 @@ def test_unported_configurations_raise(kw):
 
 
 def test_rescore_oracle_raises(genomes):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port().rescore(genomes[:2], oracle=True)
+    """``rescore(oracle=True)`` runs (it raised until the oracle was
+    ported): the ChipSim walk, bit for bit the reference's in both modes,
+    its ``meta`` naming the oracle and the host mapper; it raises only
+    for a schedule mode the oracle cannot model."""
+    for mode in ("latency", "throughput"):
+        got = _port(mode).rescore(genomes[:4], oracle=True)
+        want = _ref(mode).rescore(genomes[:4], oracle=True)
+        for k in ("latency", "energy", "tops_w", "area"):
+            assert np.array_equal(got[k], want[k]), (mode, k)
+        assert got["meta"] == want["meta"]
+        assert (got["meta"]["backend"], got["meta"]["mapper"]) == \
+            ("oracle", "python")
+    with pytest.raises(ValueError, match="burst"):
+        _port().rescore(genomes[:2], oracle=True, mode="burst")
 
 
 def test_construction_without_cuda_raises(monkeypatch):

@@ -1,7 +1,8 @@
 """PyTorch port on the card: the hand-written CUDA kernels (``dse_eval``,
 ``flash_attention`` and its backward, ``ssm_scan`` and its backward,
-``horner``) against their plain versions, refused launches, and the
-batched engine on ``cuda`` against the same engine on the CPU.  Every test
+``horner``) against their plain versions, refused launches, the batched
+engine and the plan-table executor on ``cuda`` against the CPU, and the
+python-mapper engine bit for bit the batched backend on ``cuda``.  Every test
 here needs an NVIDIA GPU (and nvcc); elsewhere each one skips with its
 reason.  Torch only, no JAX, so the
 file runs on the GPU machine:
@@ -131,6 +132,68 @@ def test_engine_on_card_matches_cpu(cuda, mode):
         assert np.array_equal(fin, np.isfinite(a)), k
         err = np.abs(a[fin] - b[fin]) / np.maximum(np.abs(b[fin]), 1e-300)
         assert err.max(initial=0.0) <= 1e-9, (k, err.max())
+
+
+def _plan_tables(wname, genomes, mode="latency"):
+    from repro_torch.core.compiler.pipeline import compile_to_table
+    from repro_torch.core.dse.encoding import decode
+    from repro_torch.core.workloads import build
+    chips = [decode(g, f"x{i}") for i, g in enumerate(genomes)]
+    return chips, [compile_to_table(build(wname), c, mode=mode)
+                   for c in chips]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["latency", "throughput"])
+def test_cuda_simulate_plans_matches_cpu(cuda, mode):
+    """Host-compiled plan tables (two workloads of one bucket, mixed in one
+    batch) executed on the card within rel 1e-9 of the CPU."""
+    from repro_torch.core.simulator.batched import simulate_plans
+    g = random_genomes(np.random.default_rng(2026), 16)
+    chips, tabs = _plan_tables("kan", g[:8], mode)
+    chips2, tabs2 = _plan_tables("snn_vgg9", g[8:], mode)
+    chips, tabs = chips + chips2, tabs + tabs2
+    on_card = simulate_plans(chips, tabs, device=cuda)
+    on_cpu = simulate_plans(chips, tabs, device="cpu")
+    assert on_card["mode"] == on_cpu["mode"] == mode
+    for k, b in on_cpu.items():
+        if k == "mode":
+            continue
+        a = np.asarray(on_card[k], np.float64)
+        b = np.asarray(b, np.float64)
+        err = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+        assert err.max(initial=0.0) <= 1e-9, (k, err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["latency", "throughput"])
+def test_cuda_python_mapper_engine_is_the_batched_backend(cuda, mode):
+    g = random_genomes(np.random.default_rng(2), 16)
+    wl = ["kan", "resnet50_int8"]
+    py = EvalEngine(wl, config=EngineConfig(
+        backend="batched", exact_mapper="python", mode=mode)).evaluate(g)
+    bt = EvalEngine(wl, config=EngineConfig(backend="batched",
+                                            mode=mode)).evaluate(g)
+    for k in ("latency", "energy", "tops_w", "area"):
+        assert np.array_equal(py[k], bt[k]), k
+
+
+@pytest.mark.gpu
+def test_cuda_plan_split_on_a_row_that_cannot_split_raises(cuda):
+    from repro_torch.core.simulator.batched import (batch_simulate,
+                                                    stack_chip_configs,
+                                                    stack_plan_tables)
+    g = random_genomes(np.random.default_rng(2026), 2)
+    chips, tabs = _plan_tables("resnet50_int8", g)
+    plans = stack_plan_tables(tabs)
+    dsp = int(np.flatnonzero((plans["op_cls"][0] == 1)
+                             & (plans["valid"][0] > 0)
+                             & (plans["fused"][0] == 0))[0])
+    plans["n_split"][1, dsp] = 2
+    plans["split_axis"][1, dsp] = 0
+    plans["split_mask"][1, dsp, :2] = 1
+    with pytest.raises(ValueError, match="Eq. 3"):
+        batch_simulate(plans, stack_chip_configs(chips), device=cuda)
 
 
 def _bf16_tol(dtype):

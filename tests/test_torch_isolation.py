@@ -51,5 +51,13 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.data.pipeline", "repro_torch.train.step",
                 "repro_torch.train.loop", "repro_torch.train.fault",
                 "repro_torch.train.straggler", "repro_torch.checkpoint.ckpt",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train",
+                "repro_torch.core.simulator.orchestrator",
+                "repro_torch.core.simulator.tile",
+                "repro_torch.core.simulator.modules",
+                "repro_torch.core.simulator.outputs",
+                "repro_torch.core.compiler.mapper",
+                "repro_torch.core.compiler.schedule",
+                "repro_torch.core.compiler.pipeline",
+                "repro_torch.core.calibrate.nvdla"):
         assert mod in out["modules"], mod
