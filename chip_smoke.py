@@ -123,7 +123,31 @@ script exits non-zero without printing a result):
                 (within rel 1e-9), with the ratios to the published NVDLA
                 values beside the paper's (printed, not gated); seconds of
                 the host compile, the card's plan execution and the oracle
-                walk, and evaluations/s of both engines.
+                walk, and evaluations/s of both engines;
+20. scan and link -- (right after phase 19) (a) the default engine,
+                ``EvalEngine(backend="scan")`` (the approximate in-scan
+                mapping), on ``cuda``, cold on the first 1,024 of phase 4's
+                genomes x 20 workloads and the first 256 of phase 6's in
+                throughput mode: evaluations/s beside phases 4 and 17, and
+                its error against those phases' exact rows (median, 99th
+                percentile and maximum of |scan / exact - 1| over pairs
+                finite in both, the pairs whose ok differs; printed, not
+                gated); phase 7's 64 genomes through the scan on ``cuda``
+                and on ``cpu``, both modes and both fidelity tiers, within
+                rel 1e-9 with equal inf/finite patterns; (b) the link
+                fidelity tier: the six golden workloads on the link chip
+                of tests/test_golden_traces.py (``hetero_bls()`` on a
+                2:1 torus, 2 DRAM channels, 32 B/cycle NoC links) through
+                the host oracle (``golden_dict()`` within rtol 1e-6 of
+                ``tests/golden/*_link.json``) and ``simulate_plans`` on
+                ``cuda`` (within rel 1e-9 of the oracle, the two link
+                bounds included); the exact engine with
+                ``fidelity="link"`` on phase 6's first 256 genomes (II at
+                least phase 6's on every pair) and on phase 7's 64 in
+                latency mode (bit for bit phase 7's card rows); the
+                ``exact_mapper="python"`` engine bit for bit the exact one,
+                and the oracle engine on the first 16 within rel 1e-9, on
+                the link tier in throughput mode; seconds of each part.
 
 Then one JSON line describing the kernels (times, launches, bounds) and,
 as the last line, ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
@@ -174,6 +198,10 @@ GOLDEN_WORKLOADS = ["resnet50_int8", "vit_b16_fp16", "llama7b_int4",
 # phase 19: rescore(oracle=True) on the first of phase 7's genomes; the
 # MOSAIC / NVDLA ratios the paper reports in Table 2 (latency, energy, area)
 ORACLE_RESCORE_POPULATION = 16
+# phase 20: the scan engine on the first genomes of phases 4 and 6 (phase
+# 17's cut), and the link tier's exact engine on the first of phase 6's
+SCAN_POPULATION, SCAN_THROUGHPUT_POPULATION = 1024, 256
+LINK_POPULATION = 256
 NVDLA_PAPER_RATIOS = {"nv_small": (1.08, 1.41, 1.77),
                       "nv_full": (1.39, 1.19, 1.50)}
 
@@ -449,8 +477,9 @@ def dse_launches(np, dev):
 
 
 def _dse_phases(torch, np, dev, args, record):
-    """Phases 3-7 and 17-19, the DSE evaluation path, the search on top of
-    it and the host oracle beside it; returns the kernel line of
+    """Phases 3-7 and 17-20, the DSE evaluation path, the search on top of
+    it, the host oracle beside it and the scan and link tiers; returns the
+    kernel line of
     ``dse_eval``.  Its tensors are freed
     when it returns."""
     from repro_torch.core.arch import hetero_bls
@@ -669,11 +698,14 @@ def _dse_phases(torch, np, dev, args, record):
            f"({len(GOLDEN_WORKLOADS)} workloads x 2 modes on cuda) max rel "
            f"err {golden_worst:.3e} (limit 1e-6)")
 
-    # ---- 17, 18, 19. the exact search, the search frontends, the oracle ----
+    # ---- 17-20. the exact search, the search frontends, the oracle, the
+    # scan backend and the link tier --------------------------------------
     record["exact"] = _exact_phase(torch, np, dev, args, genomes, res,
                                    record["main_path"], g1, rt)
     record["search"] = _search_phase(torch, np, dev)
     record["oracle"] = _oracle_phase(torch, np, dev, g2, card_rows)
+    record["scan_link"] = _scan_link_phase(torch, np, dev, genomes, res,
+                                           g1, rt, g2, card_rows, record)
 
     return {
         "name": "dse_eval", "route": "cuda",
@@ -1111,6 +1143,212 @@ def _oracle_phase(torch, np, dev, g2, card_rows):
            f"max rel err {oracle_worst:.3e} (limit 1e-9), ok masks equal; "
            f"rescore(oracle=True) on {n_re} bit for bit. (c) NVDLA INT8 "
            f"64x64x64 GEMM, oracle == card within 1e-9: {nv}")
+    return out
+
+
+def _scan_error(np, got, want):
+    """The scan's rows against exact rows: |got / want - 1| over the
+    (genome, workload) pairs finite in both, as median, 99th percentile
+    and maximum, and the number of pairs whose ok (finite latency)
+    differs."""
+    out = {}
+    for k in _ROWS:
+        a, b = got[k], want[k]
+        f = np.isfinite(a) & np.isfinite(b) & (b != 0)
+        e = np.abs(a[f] / b[f] - 1.0)
+        out[k] = {"median": float(np.median(e)) if e.size else 0.0,
+                  "p99": float(np.percentile(e, 99)) if e.size else 0.0,
+                  "max": float(e.max(initial=0.0)), "pairs": int(f.sum())}
+    out["ok_differs"] = int((np.isfinite(got["latency"])
+                             != np.isfinite(want["latency"])).sum())
+    return out
+
+
+def _scan_error_text(err):
+    return ", ".join(f"{k} {v['median']:.3e} / {v['p99']:.3e} / "
+                     f"{v['max']:.3e}" for k, v in err.items()
+                     if k != "ok_differs") \
+        + f" (median / p99 / max); ok differs in {err['ok_differs']} pairs"
+
+
+def _link_chip():
+    """tests/test_golden_traces.py's topology-exercising chip: hetero_bls
+    on a 2:1 torus grid, narrow NoC links, two interleaved DRAM channels."""
+    from repro_torch.core.arch import hetero_bls
+    return dataclasses.replace(
+        hetero_bls(), name="heteroBLS-link", torus=True, grid_aspect=2.0,
+        dram_channels=2, noc_bytes_per_cycle=32.0)
+
+
+def _scan_link_phase(torch, np, dev, genomes, res4, g1, rt, g2, card_rows,
+                     record):
+    """Phase 20: (a) the scan backend on the card beside phases 4, 6, 7
+    and 17; (b) the link fidelity tier on the card beside the oracle, the
+    golden traces and phases 6 and 7."""
+    from repro_torch.core.compiler.pipeline import (compile_workload,
+                                                    lower_plan)
+    from repro_torch.core.dse.api import EngineConfig
+    from repro_torch.core.dse.engine import EvalEngine
+    from repro_torch.core.simulator.batched import simulate_plans
+    from repro_torch.core.simulator.orchestrator import simulate
+    from repro_torch.core.workloads import build, workload_names
+
+    names = workload_names()
+    secs = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    # ---- (a) the scan backend, beside phases 4, 6 and 17 -------------------
+    g = genomes[:SCAN_POPULATION]
+    eng = EvalEngine(names, config=EngineConfig(mode="latency"))
+    check((eng.backend, eng.device.type) == ("scan", DEVICE),
+          f"default engine: {eng.backend} on {eng.device}")
+    rs = timed("scan_latency", lambda: eng.evaluate(g))
+    check(rs["latency"].shape == (len(g), len(names))
+          and not np.isnan(rs["latency"]).any(), "scan latency: NaN or shape")
+    evals = len(g) * len(names) / secs["scan_latency"]
+    err = _scan_error(np, rs, {k: res4[k][:len(g)] for k in _ROWS})
+    gt = g1[:SCAN_THROUGHPUT_POPULATION]
+    eng_t = EvalEngine(THROUGHPUT_WORKLOADS,
+                       config=EngineConfig(mode="throughput"))
+    rst = timed("scan_throughput", lambda: eng_t.evaluate(gt))
+    evals_t = len(gt) * len(THROUGHPUT_WORKLOADS) / secs["scan_throughput"]
+    err_t = _scan_error(np, rst, {k: rt[k][:len(gt)] for k in _ROWS})
+    # ---- (a) the scan on the card against the CPU, both modes and tiers ----
+    t0 = time.perf_counter()
+    cvc_worst = 0.0
+    for mode in ("latency", "throughput"):
+        for fid in ("aggregate", "link"):
+            cfg = EngineConfig(mode=mode, fidelity=fid)
+            on_card = EvalEngine(PARITY_WORKLOADS, config=cfg).evaluate(g2)
+            on_cpu = EvalEngine(PARITY_WORKLOADS, config=cfg,
+                                device="cpu").evaluate(g2)
+            for k in _ROWS:
+                a, b = on_card[k], on_cpu[k]
+                f = np.isfinite(b)
+                check(np.array_equal(f, np.isfinite(a)),
+                      f"scan {mode}/{fid} {k}: card and CPU inf patterns "
+                      f"differ")
+                check(np.array_equal(a[~f], b[~f]),
+                      f"scan {mode}/{fid} {k}: non-finite values differ")
+                e = np.abs(a[f] - b[f]) / np.maximum(np.abs(b[f]), 1e-300)
+                cvc_worst = max(cvc_worst, float(e.max(initial=0.0)))
+    secs["scan_card_vs_cpu"] = time.perf_counter() - t0
+    check(cvc_worst <= 1e-9, f"scan card vs CPU rel err {cvc_worst:.3e} "
+          f"> 1e-9")
+
+    # ---- (b) the link tier: the golden runs on the link chip ---------------
+    chip = _link_chip()
+    t0 = time.perf_counter()
+    golden_worst, card_worst = 0.0, 0.0
+    for w in GOLDEN_WORKLOADS:
+        plan = compile_workload(build(w), chip, mode="throughput")
+        r = simulate(chip, plan, fidelity="link")
+        check({"ii_chan_bound_s", "ii_link_bound_s"} <= set(r.pipeline),
+              f"{w}: the oracle's link bounds are missing")
+        with open(os.path.join(ROOT, "tests", "golden",
+                               f"{w}_link.json")) as fh:
+            golden_worst = max(golden_worst, _golden_worst(
+                np, json.load(fh), r.golden_dict(), f"{w}_link"))
+        res = simulate_plans([chip], [lower_plan(plan, chip.num_tiles)],
+                             fidelity="link", device=dev)
+        card_worst = max(card_worst, _oracle_vs_plans(np, r, res,
+                                                      f"{w}_link"))
+    torch.cuda.synchronize()
+    secs["link_golden"] = time.perf_counter() - t0
+
+    # ---- (b) the link tier's engines, beside phases 6 and 7 ----------------
+    def link_engine(workloads, mode, **kw):
+        return EvalEngine(workloads, config=EngineConfig(
+            mode=mode, fidelity="link", **kw))
+
+    gl = g1[:LINK_POPULATION]
+    rl = timed("link_exact_throughput", lambda: link_engine(
+        THROUGHPUT_WORKLOADS, "throughput", backend="exact").evaluate(gl))
+    agg = rt["latency"][:len(gl)]
+    fin = np.isfinite(agg)
+    check(np.array_equal(fin, np.isfinite(rl["latency"])),
+          "link vs phase 6: ok masks differ")
+    check((rl["latency"][fin] >= agg[fin]).all(),
+          "the link tier's II is below phase 6's aggregate II")
+    ii_ratio = rl["latency"][fin] / agg[fin]
+    rll = timed("link_exact_latency", lambda: link_engine(
+        PARITY_WORKLOADS, "latency", backend="exact").evaluate(g2))
+    _same_rows(np, rll, card_rows["latency"], "link latency mode vs phase "
+               "7's card rows")
+    rx = timed("link_exact_parity", lambda: link_engine(
+        PARITY_WORKLOADS, "throughput", backend="exact").evaluate(g2))
+    py = timed("link_python", lambda: link_engine(
+        PARITY_WORKLOADS, "throughput", backend="batched",
+        exact_mapper="python").evaluate(g2))
+    _same_rows(np, py, rx, "link: python mapper vs the exact engine")
+    n_or = ORACLE_RESCORE_POPULATION
+    ora = timed("link_oracle", lambda: link_engine(
+        PARITY_WORKLOADS, "throughput", backend="oracle").evaluate(g2[:n_or]))
+    oracle_worst = 0.0
+    for k in _ROWS:
+        a, b = ora[k], rx[k][:n_or]
+        f = np.isfinite(b)
+        check(np.array_equal(f, np.isfinite(a)), f"link oracle {k} mask")
+        e = np.abs(a[f] - b[f]) / np.maximum(np.abs(b[f]), 1e-300)
+        oracle_worst = max(oracle_worst, float(e.max(initial=0.0)))
+    check(oracle_worst <= 1e-9, f"link oracle vs the exact engine rel err "
+          f"{oracle_worst:.3e} > 1e-9")
+
+    out = {"secs": secs, "scan_evals_per_s": evals,
+           "scan_throughput_evals_per_s": evals_t,
+           "phase4_evals_per_s": record["main_path"]["evals_per_s"],
+           "phase17_evals_per_s": record["exact"]["evals_per_s"],
+           "phase17_throughput_evals_per_s":
+               record["exact"]["throughput_evals_per_s"],
+           "scan_error_latency": err, "scan_error_throughput": err_t,
+           "scan_card_vs_cpu_max_rel_err": cvc_worst, "scan_meta": rs["meta"],
+           "link_golden_max_rel_err": golden_worst,
+           "link_card_vs_oracle_max_rel_err": card_worst,
+           "link_ii_over_aggregate": {
+               "median": float(np.median(ii_ratio)),
+               "max": float(ii_ratio.max(initial=1.0)),
+               "share_above": float((ii_ratio > 1.0).mean())},
+           "link_evals_per_s": len(gl) * len(THROUGHPUT_WORKLOADS)
+           / secs["link_exact_throughput"],
+           "link_oracle_max_rel_err": oracle_worst}
+    lr = out["link_ii_over_aggregate"]
+    _phase(20, "scan and link", f"(a) EvalEngine scan/latency on {dev}: "
+           f"{len(g)} genomes x {len(names)} workloads in "
+           f"{secs['scan_latency']:.3f} s = {evals:.1f} evaluations/s "
+           f"(phase 4, batched: {out['phase4_evals_per_s']:.1f}; phase 17, "
+           f"exact: {out['phase17_evals_per_s']:.1f}); against phase 4's "
+           f"exact rows: {_scan_error_text(err)}; throughput {len(gt)} x "
+           f"{len(THROUGHPUT_WORKLOADS)} in {secs['scan_throughput']:.3f} s "
+           f"= {evals_t:.1f} evaluations/s (phase 17: "
+           f"{out['phase17_throughput_evals_per_s']:.1f}), against phase "
+           f"6's rows: {_scan_error_text(err_t)}; {len(g2)} x "
+           f"{len(PARITY_WORKLOADS)} x 2 modes x 2 tiers card vs CPU max rel "
+           f"err {cvc_worst:.3e} (limit 1e-9), inf patterns equal, "
+           f"{secs['scan_card_vs_cpu']:.3f} s. (b) link chip x "
+           f"{len(GOLDEN_WORKLOADS)} golden workloads (throughput): "
+           f"golden_dict() max rel err {golden_worst:.3e} (limit 1e-6), "
+           f"simulate_plans on {dev} within rel {card_worst:.3e} of the "
+           f"oracle (limit 1e-9), {secs['link_golden']:.3f} s; exact engine "
+           f"fidelity=link on {len(gl)} x {len(THROUGHPUT_WORKLOADS)} in "
+           f"{secs['link_exact_throughput']:.3f} s = "
+           f"{out['link_evals_per_s']:.1f} evaluations/s (phase 17's "
+           f"aggregate: {out['phase17_throughput_evals_per_s']:.1f}), II / "
+           f"phase 6's II median {lr['median']:.4f}, max {lr['max']:.4f}, "
+           f"above 1 in {lr['share_above']:.4f} of pairs (never below); "
+           f"latency mode on {len(g2)} x {len(PARITY_WORKLOADS)} bit for bit "
+           f"phase 7's card rows ({secs['link_exact_latency']:.3f} s); "
+           f"python mapper bit for bit the exact engine "
+           f"({secs['link_python']:.3f} s, exact "
+           f"{secs['link_exact_parity']:.3f} s); oracle engine on {n_or} "
+           f"within rel {oracle_worst:.3e} (limit 1e-9, "
+           f"{secs['link_oracle']:.3f} s)")
     return out
 
 

@@ -26,7 +26,9 @@ row, ``RowMapper.step`` (the mapping) and then
 ``simulator.batched.PlanExecutor.step`` (the execution), so the formulas
 exist once and the search's metrics are ``map_and_simulate``'s bit for
 bit, as the reference pins its own pair.  ``batched_map`` runs the
-mapping alone (``map_placements``).
+mapping alone (``map_placements``).  ``fidelity="link"`` runs the
+executor's link-tier occupancy in the same pass, so the search surface
+gains ``ii_chan_bound_s`` and ``ii_link_bound_s``.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from ..simulator.orchestrator import SCHEDULE_MODES, check_fidelity
 
 __all__ = ["batched_map", "map_and_simulate", "search_population",
            "search_and_simulate", "place_configs", "map_placements",
-           "RowMapper", "Choice", "SEARCH_KEYS"]
+           "RowMapper", "Choice", "SEARCH_KEYS", "LINK_KEYS"]
 
 # map_graph's tie band: completion times within 1e-15 s prefer the
 # smaller MAC array.
@@ -268,8 +270,7 @@ def _n_slots(cfgs) -> int:
 
 
 def _check_mode_fidelity(what: str, mode: str, fidelity: str) -> None:
-    """The reference's refusals of an unknown mode or fidelity, and the
-    link tier's, which is not ported."""
+    """The reference's refusals of an unknown mode or fidelity."""
     if mode not in SCHEDULE_MODES:
         raise ValueError(f"{what} cannot model schedule mode {mode!r}; "
                          f"supported modes: {SCHEDULE_MODES}")
@@ -328,7 +329,7 @@ def map_and_simulate(ws: Dict[str, np.ndarray],
     _check_mode_fidelity("batched mapper+executor", mode, fidelity)
     cm, T, chip, rows, max_ops = _prepare(ws, cfgs, calib, device, placed)
     out = _search_one(cm, T, chip, rows, max_ops, _n_slots(cfgs),
-                      float(ws["total_macs"]), placements)
+                      float(ws["total_macs"]), placements, fidelity)
     res = {k: v.cpu().numpy() for k, v in out.items()}
     res["area_mm2"] = cfgs["chip"]["chip_area"]
     res["peak_tops"] = cfgs["chip"]["peak_tops"]
@@ -342,11 +343,13 @@ SEARCH_KEYS = ("latency_s", "energy_pj", "achieved_tops", "ii_tile_bound_s",
                "ii_dram_bound_s", "ii_noc_bound_s", "ii_s", "fill_latency_s",
                "dram_bytes_per_batch", "energy_ss_pj", "achieved_tops_ss",
                "pipeline_depth")
+# the link tier's two bounds, beside SEARCH_KEYS on that tier
+LINK_KEYS = ("ii_chan_bound_s", "ii_link_bound_s")
 
 
 def _search_one(cm, T, chip, rows, max_ops: int, n_slots: int,
-                total_macs: float, placements: bool = False
-                ) -> Dict[str, torch.Tensor]:
+                total_macs: float, placements: bool = False,
+                fidelity: str = "aggregate") -> Dict[str, torch.Tensor]:
     """One pass over a workload's rows that maps each row and executes it
     in the same step: ``RowMapper`` and ``PlanExecutor`` side by side,
     sharing their per-evaluation term cache.  Returns the executor's
@@ -354,7 +357,7 @@ def _search_one(cm, T, chip, rows, max_ops: int, n_slots: int,
     (the search materialises none)."""
     T = dict(T, _cache={})
     mapper = RowMapper(cm, T, chip, max_ops, n_slots)
-    ex = PlanExecutor(cm, T, chip, max_ops)
+    ex = PlanExecutor(cm, T, chip, max_ops, fidelity)
     pl = (_placement_arrays(T["exists"].shape[0], max_ops,
                             T["exists"].device) if placements else None)
     for r in rows:
@@ -386,7 +389,8 @@ def search_population(ws_list: Sequence[Dict[str, np.ndarray]],
     """Exact search scoring of one candidate batch on a list of prepared
     workloads: per workload, one pass that maps and executes each active
     op row (``_search_one``).  Returns one result dict per workload: the
-    (B,) search surface (``SEARCH_KEYS``), or only ``out_keys``, plus
+    (B,) search surface (``SEARCH_KEYS``, and ``LINK_KEYS`` on the link
+    tier), or only ``out_keys``, plus
     ``ok``, ``area_mm2``, ``peak_tops`` and ``mode`` (which validates and
     tags: both schedule surfaces ride in the one pass).  Rows with ``ok ==
     False`` carry garbage metrics.  This is what ``EvalEngine(backend=
@@ -396,12 +400,16 @@ def search_population(ws_list: Sequence[Dict[str, np.ndarray]],
     device = resolve_device(device)
     cm = cost_model(calib, device)
     T, chip = placed if placed is not None else place_configs(cfgs, device)
-    keys = SEARCH_KEYS if out_keys is None else tuple(out_keys)
+    if out_keys is not None:
+        keys = tuple(out_keys)
+    else:
+        keys = SEARCH_KEYS + (LINK_KEYS if fidelity == "link" else ())
     n_slots = _n_slots(cfgs)
     results = []
     for ws in ws_list:
         out = _search_one(cm, T, chip, op_rows(ws), len(ws["op_type"]),
-                          n_slots, float(ws["total_macs"]))
+                          n_slots, float(ws["total_macs"]),
+                          fidelity=fidelity)
         res = {k: out[k].cpu().numpy() for k in keys + ("ok",)}
         res["area_mm2"] = cfgs["chip"]["chip_area"]
         res["peak_tops"] = cfgs["chip"]["peak_tops"]

@@ -1,6 +1,9 @@
 """Cache-aware DSE evaluation engine on torch -- the search's one hot path.
 
-Port of ``repro/core/dse/engine.py``.  The compile-free exact backends,
+Port of ``repro/core/dse/engine.py``.  The default backend, ``"scan"``,
+scores every cache miss with the approximate in-scan mapping of
+``batch_eval.batch_evaluate``, one call per workload; ``rescore`` on a
+scan engine goes through the exact path.  The compile-free exact backends,
 ``"exact"`` and ``"batched"``, score every cache miss with one
 ``compiler.batched_mapper.search_population`` call per micro-batch over
 all the workloads (the exact Eq. 1-3 mapping and the batched plan
@@ -20,10 +23,9 @@ the genome memo behind the ``ResultStore`` interface (keys are ``mode:``
 
 ``EvalEngine(workloads, config=EngineConfig(...), device=None)`` runs on
 ``cuda`` and raises without a card unless ``device="cpu"`` is passed.
-Combinations that are not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md queue item: ``backend="scan"``,
-``fidelity="link"`` and ``shard=True``.  The reference's deprecated
-per-knob constructor arguments are not ported.
+Every backend runs in both modes and both fidelity tiers; ``shard=True``
+raises ``NotImplementedError`` naming its ROADMAP.md queue item.  The
+reference's deprecated per-knob constructor arguments are not ported.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ from ..simulator.orchestrator import (CACHE_FRAC, SCHEDULE_MODES,
 from ..simulator.orchestrator import simulate as oracle_simulate
 from ..workloads import build
 from .api import BACKENDS, META_VERSION, EngineConfig, context_digest
-from .batch_eval import prepare_configs, prepare_workload
+from .batch_eval import batch_evaluate, prepare_configs, prepare_workload
 from .encoding import (FIELDS_PER_TILE, GENOME_LEN, IDX_ASPECT, IDX_DRAM,
                        IDX_DRAM_CH, IDX_ICONN, IDX_NOC_BPC, IDX_TOPO,
                        _TILE_FIELDS, decode)
@@ -92,11 +94,6 @@ class NonFiniteMetricsError(RuntimeError):
 _MODE_KEYS = {
     "latency": ("latency_s", "energy_pj", "achieved_tops"),
     "throughput": ("ii_s", "energy_ss_pj", "achieved_tops_ss"),
-}
-
-# configurations this slice does not run yet, with their ROADMAP.md item
-_UNPORTED_BACKENDS = {
-    "scan": "A8 (the scan backend, batch_eval's in-scan mapping)",
 }
 
 
@@ -408,11 +405,6 @@ class EvalEngine:
                  config: Optional[EngineConfig] = None,
                  device=None):
         config = EngineConfig() if config is None else config
-        if config.backend in _UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend={config.backend!r} is not ported yet: ROADMAP.md "
-                f"queue item {_UNPORTED_BACKENDS[config.backend]}; use "
-                f"backend='exact' or 'batched'")
         check_fidelity(config.fidelity)
         if config.shard:
             raise NotImplementedError(
@@ -492,13 +484,16 @@ class EvalEngine:
                 "chip": {k: v[idx] for k, v in cfgs["chip"].items()}}
 
     def _simulate(self, cfgs, genomes: np.ndarray, mode: str,
-                  oracle: Optional[bool] = None):
+                  oracle: Optional[bool] = None, exact: bool = False):
         """(n, W) lat/en/tw for a config stack (and its genomes) through
-        this engine's backend, or the oracle when ``oracle`` says so.
-        Unmappable (genome, workload) pairs score inf latency/energy and 0
-        TOPS/W."""
+        this engine's backend, or the oracle when ``oracle`` says so;
+        ``exact`` sends a scan engine through the exact paths
+        (``rescore``).  Unmappable (genome, workload) pairs score inf
+        latency/energy and 0 TOPS/W."""
         self.stats.dispatches += 1
         oracle = self.backend == "oracle" if oracle is None else oracle
+        if self.backend == "scan" and not (exact or oracle):
+            return self._simulate_scan(cfgs, mode)
         if oracle or self.exact_mapper == "python":
             return self._simulate_per_candidate(cfgs, genomes, mode, oracle)
         lkey, ekey, akey = _MODE_KEYS[mode]
@@ -510,8 +505,8 @@ class EvalEngine:
         placed = place_configs(cfgs, self.device)
         results = search_population(
             [self._prepared(w) for w in self.workloads], cfgs, self.calib,
-            mode=mode, out_keys=(lkey, ekey, akey), device=self.device,
-            placed=placed)
+            mode=mode, out_keys=(lkey, ekey, akey),
+            fidelity=self.fidelity, device=self.device, placed=placed)
         for j, res in enumerate(results):
             ok = res["ok"]
             l, e = res[lkey], res[ekey]
@@ -519,6 +514,26 @@ class EvalEngine:
             en[ok, j] = e[ok]
             power = e[ok] * 1e-12 / np.maximum(l[ok], 1e-30)
             tw[ok, j] = res[akey][ok] / np.maximum(power, 1e-30)
+        return lat, en, tw
+
+    def _simulate_scan(self, cfgs, mode: str):
+        """The scan backend: ``batch_evaluate`` per workload on this
+        engine's device (the approximate in-scan mapping; unmappable
+        pairs score inf latency and energy through it)."""
+        lkey, ekey, akey = _MODE_KEYS[mode]
+        n, W = len(cfgs["chip"]["chip_area"]), len(self.workloads)
+        lat = np.zeros((n, W))
+        en = np.zeros((n, W))
+        tw = np.zeros((n, W))
+        placed = place_configs(cfgs, self.device)
+        for j, wname in enumerate(self.workloads):
+            res = batch_evaluate(self._prepared(wname), cfgs, self.calib,
+                                 fidelity=self.fidelity, device=self.device,
+                                 placed=placed)
+            lat[:, j] = res[lkey]
+            en[:, j] = res[ekey]
+            power = res[ekey] * 1e-12 / np.maximum(res[lkey], 1e-30)
+            tw[:, j] = res[akey] / np.maximum(power, 1e-30)
         return lat, en, tw
 
     def _simulate_per_candidate(self, cfgs, genomes: np.ndarray, mode: str,
@@ -566,7 +581,8 @@ class EvalEngine:
                       for i, p in zip(rows, plans)]
             res = batch_simulate(stack_plan_tables(tables),
                                  self._take(cfgs, np.asarray(rows)),
-                                 self.calib, mode=mode, device=self.device)
+                                 self.calib, mode=mode,
+                                 fidelity=self.fidelity, device=self.device)
             l, e = res[lkey], res[ekey]
             lat[rows, j] = l
             en[rows, j] = e
@@ -674,11 +690,12 @@ class EvalEngine:
         """Exact re-scoring through this engine's exact mapper (the
         compile-free search by default, ``exact_mapper="python"`` the
         per-candidate host compile), or the ``ChipSim`` walk with
-        ``oracle=True``; bypasses the memo."""
+        ``oracle=True``, whatever this engine's search backend (a scan
+        engine's too); bypasses the memo."""
         mode = self._check_mode(mode)
         genomes = np.asarray(genomes, dtype=np.int64).reshape(-1, GENOME_LEN)
         lat, en, tw = self._simulate(self._configs(genomes), genomes, mode,
-                                     oracle=oracle)
+                                     oracle=oracle, exact=True)
         return {"latency": lat, "energy": en, "tops_w": tw,
                 "area": self.areas(genomes),
                 "meta": {"meta_version": META_VERSION,
@@ -696,7 +713,7 @@ class EvalEngine:
 
     def warmup(self, buckets: Sequence[int] = tuple(range(16, 68, 4))
                ) -> None:
-        """Run one small search dispatch on every
+        """Run one small dispatch of this engine's backend on every
         workload (one genome, bypassing the memo), so that the first
         generation's time excludes first-use costs: the preparation cache,
         the cost model's device tables and the device's own start-up.

@@ -78,7 +78,7 @@ def run_ga(sweep: SweepResult, bracket: float,
            calib: CalibrationTable = DEFAULT_CALIB,
            verbose: bool = False, engine: Optional[EvalEngine] = None,
            prefilter: bool = True, loop: str = "device",
-           on_generation: Optional[Callable] = None
+           on_generation: Optional[Callable] = None, device=None
            ) -> Optional[GAResult]:
     """GA refinement at one area budget, seeded from the sweep.
 
@@ -88,8 +88,8 @@ def run_ga(sweep: SweepResult, bracket: float,
     ``prefilter`` (default) out-of-bracket children -- whose Eq. 8
     fitness is -inf regardless of their metrics -- skip simulation.  An
     engine the loop builds itself (no ``engine``) has the reference's
-    default config, whose ``scan`` backend raises naming A8 until it is
-    ported.
+    default config, the scan backend, on ``device`` (the card unless
+    ``"cpu"`` is asked for).
 
     ``on_generation(gen, pop, fit, metrics)``, when given, is called
     after every scored population -- ``gen`` 0 for the seed population,
@@ -105,7 +105,7 @@ def run_ga(sweep: SweepResult, bracket: float,
     engine = (engine.check_workloads(sweep.workloads, calib)
               if engine is not None
               else EvalEngine(sweep.workloads, calib,
-                              config=EngineConfig()))
+                              config=EngineConfig(), device=device))
     rng = np.random.default_rng(seed + int(bracket))
     base = sweep.homo_baseline()
     if bracket not in base:

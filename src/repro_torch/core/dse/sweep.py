@@ -9,10 +9,9 @@ at the same bracket* found in the same sweep (the iso-area baseline of
 Eq. 8).  Every draw comes from ``np.random.default_rng(seed)``, so the
 same seed samples the reference's genomes.
 
-The default backend is the reference's, ``scan``, which is not ported
-(ROADMAP.md queue item A8) and raises; ``exact=True`` or a shared exact
-or batched engine runs.  ``device`` places the exact engine that
-``exact=True`` builds (the card unless ``"cpu"`` is asked for).
+The default backend is the reference's, ``scan``; ``exact=True`` builds
+an exact engine instead.  ``device`` places the engine a call builds
+(the card unless ``"cpu"`` is asked for).
 """
 from __future__ import annotations
 
@@ -23,8 +22,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..calibrate.asap7 import CalibrationTable, DEFAULT_CALIB
+from ..workloads import build
 from .api import EngineConfig
-from .encoding import FAMILIES, sample_in_bracket
+from .batch_eval import batch_evaluate, prepare_configs, prepare_workload
+from .encoding import FAMILIES, decode, sample_in_bracket
 from .engine import EvalEngine
 from .objective import ALPHA, AREA_BRACKETS, area_bracket
 
@@ -92,23 +93,41 @@ class SweepResult:
 
 def evaluate_genomes(genomes: np.ndarray, workloads: Sequence[str],
                      calib: CalibrationTable = DEFAULT_CALIB,
-                     batch: int = 1024) -> Dict[str, np.ndarray]:
+                     batch: int = 1024, device=None) -> Dict[str, np.ndarray]:
     """Score genomes on every workload (one-shot ``EvalEngine`` with the
-    reference's default config, whose ``scan`` backend raises naming
-    A8 until it is ported).  Search loops should hold their own engine."""
-    return EvalEngine(workloads, calib,
-                      config=EngineConfig(batch=batch)).evaluate(genomes)
+    reference's default config, the scan backend, on ``device``).  Search
+    loops should hold their own engine so its memo persists."""
+    return EvalEngine(workloads, calib, config=EngineConfig(batch=batch),
+                      device=device).evaluate(genomes)
 
 
 def evaluate_genomes_reference(genomes: np.ndarray, workloads: Sequence[str],
                                calib: CalibrationTable = DEFAULT_CALIB,
-                               batch: int = 1024) -> Dict[str, np.ndarray]:
-    """The reference's pre-engine host loop over ``batch_eval
-    .batch_evaluate``, the scan path's evaluator: not ported (raises)."""
-    raise NotImplementedError(
-        "evaluate_genomes_reference runs the scan path's batch_evaluate, "
-        "which is not ported yet: ROADMAP.md queue item A8 (the scan "
-        "backend, batch_eval's in-scan mapping)")
+                               batch: int = 1024,
+                               device=None) -> Dict[str, np.ndarray]:
+    """The reference's pre-engine host loop, kept verbatim as the parity
+    baseline: re-prepares every workload per batch, decodes every genome
+    into a ``ChipConfig`` and runs ``batch_eval.batch_evaluate`` on
+    ``device``."""
+    chips = [decode(g, f"g{i}") for i, g in enumerate(genomes)]
+    n, w = len(chips), len(workloads)
+    lat = np.zeros((n, w))
+    en = np.zeros((n, w))
+    tw = np.zeros((n, w))
+    area = np.zeros(n)
+    for s in range(0, n, batch):
+        cfgs = prepare_configs(chips[s:s + batch], calib)
+        area[s:s + batch] = cfgs["chip"]["chip_area"]
+        for j, wname in enumerate(workloads):
+            ws = prepare_workload(build(wname))
+            res = batch_evaluate(ws, cfgs, calib, device=device)
+            lat[s:s + batch, j] = res["latency_s"]
+            en[s:s + batch, j] = res["energy_pj"]
+            power = res["energy_pj"] * 1e-12 / np.maximum(res["latency_s"],
+                                                          1e-30)
+            tw[s:s + batch, j] = res["achieved_tops"] / np.maximum(power,
+                                                                   1e-30)
+    return {"latency": lat, "energy": en, "tops_w": tw, "area": area}
 
 
 def _engine(engine: Optional[EvalEngine], workloads: Sequence[str],

@@ -17,8 +17,10 @@ kernel launches; padding and fused rows launch nothing.
 Semantics are the exact orchestrator rules: dynamic DRAM bandwidth
 sharing, the byte- and slot-bounded FIFO activation cache
 (``fifo_insert``), power gating at the 5 % residual and Eq. 3 split
-execution with the explicit NoC reduce.  The aggregate fidelity tier is
-ported; the link tier is not yet.
+execution with the explicit NoC reduce.  On the link fidelity tier the
+executor also accumulates the per-link XY-routed NoC and per-channel
+DRAM occupancy (``LinkOccupancy``), which the scan evaluator
+(``dse.batch_eval``) shares.
 
 State tensors are updated in place (the reference's carry is
 immutable); nothing outside the ``PlanExecutor`` holds them.
@@ -43,15 +45,18 @@ from ..arch import MAX_TILES, ChipConfig
 from ..calibrate.asap7 import CalibrationTable, DEFAULT_CALIB
 from ..ir import OpClass, PlanTensor
 from .area import chip_area, tile_area
-from .costs import (ACT_CACHE_SLOTS, CACHE_FRAC, F64, OP_COST_KEYS,
-                    CostModel, _div, _where, cost_model, grid_dims,
+from .costs import (ACT_CACHE_SLOTS, CACHE_FRAC, F64, MAX_DRAM_CHANNELS,
+                    MAX_LINKS, OP_COST_KEYS, CostModel, _div, _where,
+                    cost_model, dram_channel_one_hot, grid_dims,
                     noc_transfer_energy_pj, noc_transfer_seconds,
-                    pipeline_bounds, split_op_fields, steady_state_energy)
+                    pipeline_bounds, split_op_fields, steady_state_energy,
+                    xy_route_link_mask)
 from .orchestrator import SCHEDULE_MODES, check_fidelity, noc_hops
 
 __all__ = ["stack_chip_configs", "stack_plan_tables", "batch_simulate",
            "simulate_plans", "place_configs", "fifo_insert",
-           "PlanExecutor", "op_rows", "OpRow", "TILE_KEYS", "CHIP_KEYS"]
+           "PlanExecutor", "LinkOccupancy", "op_rows", "OpRow", "TILE_KEYS",
+           "CHIP_KEYS"]
 
 TILE_KEYS = ("exists", "num_macs", "rows", "cols", "engine", "prec_mask",
              "asym_mac", "sparsity", "dataflow", "sram_kb", "dsp_lanes",
@@ -278,6 +283,92 @@ def fifo_insert(fifo_ops: torch.Tensor, fifo_bytes: torch.Tensor,
 
 
 # =============================================================================
+# link-fidelity occupancy (mirrors the oracle walk's link_occ / chan_occ)
+# =============================================================================
+
+class LinkOccupancy:
+    """The link tier's per-batch occupancy of B candidates: ``link``
+    (B, MAX_LINKS) XY-routed NoC seconds and ``chan`` (B,
+    MAX_DRAM_CHANNELS) DRAM bytes.  Each candidate's routes (src, dst)
+    and channel selectors are tabulated once, so a row only gathers.
+
+    The reference adds a route for every predecessor slot and every tile
+    of a split; hit, miss and padding slots and the owner's own route are
+    empty and add exact zeros, so skipping them keeps the bits, and the
+    additions that remain run in the reference's order."""
+
+    def __init__(self, chip: Dict[str, torch.Tensor]):
+        B = chip["grid_w"].shape[0]
+        dev = chip["grid_w"].device
+        t = torch.arange(MAX_TILES, dtype=F64, device=dev)
+        grid = [chip[k][:, :, None] for k in ("grid_w", "grid_h", "torus")]
+        # (B, src * MAX_TILES + dst, MAX_LINKS)
+        self.routes = xy_route_link_mask(t[None, :, None], t[None, None, :],
+                                         *grid).reshape(B, -1, MAX_LINKS)
+        # (B, tile, MAX_DRAM_CHANNELS)
+        self.chan_onehot = dram_channel_one_hot(t[None, :],
+                                                chip["dram_channels"])
+        self.chip = chip
+        self.link = torch.zeros((B, MAX_LINKS), dtype=F64, device=dev)
+        self.chan = torch.zeros((B, MAX_DRAM_CHANNELS), dtype=F64,
+                                device=dev)
+
+    def link_seconds(self, nbytes):
+        """One grid link's store-and-forward occupancy (hops = 1)."""
+        chip = self.chip
+        return noc_transfer_seconds(nbytes, chip["noc_bpc"], 1.0,
+                                    chip["noc_base_cycles"],
+                                    chip["ref_clock_hz"])
+
+    def _route(self, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+        """(B, MAX_LINKS) route of each candidate's (src, dst), both
+        (B, 1) int64 >= 0."""
+        idx = (src * MAX_TILES + dst)[:, :, None].expand(-1, 1, MAX_LINKS)
+        return torch.gather(self.routes, 1, idx)[:, 0, :]
+
+    def acquire(self, src: torch.Tensor, owner: torch.Tensor,
+                via_noc: torch.Tensor, seconds: torch.Tensor) -> None:
+        """One predecessor's cross-tile fetch from ``src`` to ``owner``
+        where ``via_noc``, each link of the route busy ``seconds``."""
+        rt = self._route(torch.clamp(src, min=0), owner)
+        self.link = self.link + torch.where(via_noc, rt * seconds, 0.0)
+
+    def reduce(self, split_mask: torch.Tensor, owner: torch.Tensor,
+               seconds: torch.Tensor) -> None:
+        """A split's reduce: every tile of ``split_mask`` (B, MAX_TILES)
+        sends its output slice to ``owner``, in tile order."""
+        B = owner.shape[0]
+        idx = owner[:, :, None, None].expand(-1, MAX_TILES, 1, MAX_LINKS)
+        red = torch.gather(self.routes.reshape(B, MAX_TILES, MAX_TILES,
+                                               MAX_LINKS), 2, idx)[:, :, 0]
+        red = red * seconds[:, :, None]
+        for t in range(MAX_TILES):
+            self.link = self.link + torch.where(split_mask[:, t:t + 1],
+                                                red[:, t], 0.0)
+
+    def dram_owner(self, owner: torch.Tensor,
+                   dram_bytes: torch.Tensor) -> None:
+        """One tile's DRAM bytes on its channel (the other tiles of the
+        reference's per-tile loop add zeros)."""
+        idx = owner[:, :, None].expand(-1, 1, MAX_DRAM_CHANNELS)
+        oh = torch.gather(self.chan_onehot, 1, idx)[:, 0, :]
+        self.chan = self.chan + dram_bytes * oh
+
+    def dram_tiles(self, dram_each: torch.Tensor) -> None:
+        """Per-tile DRAM bytes (B, MAX_TILES) on their channels, in tile
+        order."""
+        for t in range(MAX_TILES):
+            self.chan = self.chan + dram_each[:, t:t + 1] \
+                * self.chan_onehot[:, t]
+
+    def bounds(self) -> Dict[str, torch.Tensor]:
+        """``pipeline_bounds``' link-tier arguments."""
+        return {"chan_bytes": self.chan,
+                "dram_channels": self.chip["dram_channels"],
+                "link_busy_s": self.link}
+
+
+# =============================================================================
 # the plan-execution loop (mirrors ChipSim.run op for op)
 # =============================================================================
 
@@ -287,11 +378,15 @@ class PlanExecutor:
     :meth:`finish`.  ``compiler.batched_mapper._search_one`` feeds it
     each row's placement as the mapper makes it.  ``T`` may carry a
     ``_cache`` dict shared with the mapper (the cached terms are functions
-    of the tiles alone)."""
+    of the tiles alone).  ``fidelity="link"`` adds the link tier's
+    occupancy (``self.link``, a ``LinkOccupancy``; None on the aggregate
+    tier, which allocates and launches nothing for it)."""
 
     def __init__(self, cm: CostModel, T: Dict[str, torch.Tensor],
-                 chip: Dict[str, torch.Tensor], max_ops: int):
+                 chip: Dict[str, torch.Tensor], max_ops: int,
+                 fidelity: str = "aggregate"):
         self.cm, self.chip = cm, chip
+        self.link = LinkOccupancy(chip) if fidelity == "link" else None
         B = T["exists"].shape[0]
         dev = self.dev = T["exists"].device
         # tile x precision / sparsity terms, per evaluation
@@ -354,6 +449,9 @@ class PlanExecutor:
         e_noc_in = z1()
         ns_pred = self._noc_seconds(r.per_pred_bytes) if r.preds else None
         ne_pred = self._noc_energy(r.per_pred_bytes) if r.preds else None
+        link = self.link
+        if link is not None and r.preds:
+            acq_s = link.link_seconds(r.per_pred_bytes)
         for p in r.preds:
             t_dep = torch.maximum(t_dep, self.op_finish[:, p:p + 1])
             src = self.cached_at[:, p:p + 1]
@@ -363,6 +461,8 @@ class PlanExecutor:
             dram_miss = dram_miss + _where(miss, r.per_pred_bytes, 0.0)
             extra_noc_s = extra_noc_s + torch.where(via_noc, ns_pred, 0.0)
             e_noc_in = e_noc_in + torch.where(via_noc, ne_pred, 0.0)
+            if link is not None:
+                link.acquire(src, owner, via_noc, acq_s)
             self.ev_hit += hit
             self.ev_noc += via_noc
             self.ev_miss += miss
@@ -452,6 +552,15 @@ class PlanExecutor:
             noc_s_op = noc_s_op + torch.where(is_split, reduce_s, 0.0)
         self.dram_occ = self.dram_occ + dram_b_op
         self.noc_occ = self.noc_occ + noc_s_op
+        if link is not None:
+            if r.may_split:
+                link.reduce(is_split & mask, owner,
+                            link.link_seconds(slice_out))
+                link.dram_tiles(torch.where(
+                    is_split, torch.where(mask, ex_sub["dram_bytes"], 0.0),
+                    torch.where(onehot, ex["dram_bytes"], 0.0)))
+            else:
+                link.dram_owner(owner, ex["dram_bytes"])
 
         self.op_finish[:, idx:idx + 1] = fin_op
         fifo_insert(self.fifo_ops, self.fifo_bytes, self.cached_at, owner,
@@ -488,7 +597,8 @@ class PlanExecutor:
                                 * resid * 1e9, 0.0).sum(dim=1, keepdim=True)
         out.update(pipeline_bounds(
             makespan, tile_active.max(dim=1, keepdim=True).values,
-            self.dram_occ, chip["dram_gbps"], self.noc_occ))
+            self.dram_occ, chip["dram_gbps"], self.noc_occ,
+            **(self.link.bounds() if self.link is not None else {})))
         ii = out["ii_s"]
         out["fill_latency_s"] = makespan
         out["dram_bytes_per_batch"] = self.dram_occ
@@ -566,8 +676,9 @@ def batch_simulate(plans: Dict[str, np.ndarray],
     ``area_mm2``, ``peak_tops`` and ``mode``.
 
     ``mode`` defaults to the tables' stamped mode; a mode outside
-    ``SCHEDULE_MODES`` raises, and so does ``fidelity="link"`` (not
-    ported).
+    ``SCHEDULE_MODES`` raises.  ``fidelity="link"`` adds the link tier's
+    ``ii_chan_bound_s`` and ``ii_link_bound_s`` and max's them into
+    ``ii_s``.
     """
     mode = mode if mode is not None else plans.get("mode", "latency")
     if mode not in SCHEDULE_MODES:
@@ -591,7 +702,7 @@ def batch_simulate(plans: Dict[str, np.ndarray],
                           (plans["n_split"][idx], F64),
                           (plans["split_axis"][idx], torch.long),
                           (plans["split_mask"][idx] > 0, torch.bool)))
-        ex = PlanExecutor(cm, T, chip, max_ops)
+        ex = PlanExecutor(cm, T, chip, max_ops, fidelity)
         for r in rows:
             i = r.index
             if r.may_split:

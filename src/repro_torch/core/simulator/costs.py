@@ -35,9 +35,6 @@ per-tile FIFO bounded in bytes (``CACHE_FRAC`` of SRAM) and entries
 (``ACT_CACHE_SLOTS``).  ``ActivationCache`` is the host reference the
 ``ChipSim`` oracle walks with; ``simulator.batched.fifo_insert`` is its
 tensor mirror for the batched executors.
-
-The link-fidelity helpers (``xy_route_link_mask``,
-``dram_channel_one_hot``) are not ported yet (ROADMAP.md A5-link).
 """
 from __future__ import annotations
 
@@ -59,17 +56,26 @@ __all__ = [
     "COST_MODEL_VERSION", "FIDELITIES", "MAX_DRAM_CHANNELS", "MAX_LINKS",
     "CostModel", "cost_model", "ActivationCache", "noc_transfer_seconds",
     "noc_transfer_energy_pj", "split_op_fields", "grid_dims",
-    "pipeline_bounds", "steady_state_energy",
+    "xy_route_link_mask", "dram_channel_one_hot", "pipeline_bounds",
+    "steady_state_energy",
 ]
 
 # Version tag of the cost formulas (the reference's; the port computes the
 # same metrics, so it carries the same tag).
 COST_MODEL_VERSION = "9.0"
 
-# Throughput-II fidelity tiers of the reference; the port runs
-# ``aggregate`` (``link`` raises in the engine until it is ported).
+# Throughput-II fidelity tiers: ``aggregate`` keeps the one-shared-link
+# NoC / one-channel DRAM bounds; ``link`` adds per-link XY-routed NoC
+# occupancy on the tile grid and per-channel (address-interleaved) DRAM
+# queues on top.
 FIDELITIES = ("aggregate", "link")
+
+# Per-channel DRAM queue width of the link tier: chips declare
+# ``dram_channels`` in [1, MAX_DRAM_CHANNELS]; unused lanes stay zero.
 MAX_DRAM_CHANNELS = 8
+
+# Link-occupancy width: one horizontal link (right of each grid position)
+# and one vertical link (below it) on the largest admissible tile grid.
 MAX_LINKS = 2 * MAX_TILES
 
 # fraction of per-tile SRAM reserved for the activation cache (§3.3.4)
@@ -232,6 +238,39 @@ def _ones_like(x):
     return torch.ones_like(x) if _t(x) else np.ones_like(x)
 
 
+def _device_of(*xs) -> Optional[torch.device]:
+    """The device of the first tensor operand; ``None``: all host."""
+    return next((x.device for x in xs if _t(x)), None)
+
+
+def _f64(x, dev: Optional[torch.device]):
+    """``x`` as float64: a tensor on ``dev``, or numpy when ``dev`` is
+    ``None``."""
+    if dev is None:
+        return np.asarray(x, np.float64)
+    return torch.as_tensor(x, dtype=F64, device=dev)
+
+
+def _arange(n: int, dev: Optional[torch.device]):
+    if dev is None:
+        return np.arange(n, dtype=np.float64)
+    return torch.arange(n, dtype=F64, device=dev)
+
+
+def _cat_last(parts):
+    if _t(parts[0]):
+        return torch.cat(parts, dim=-1)
+    return np.concatenate(parts, axis=-1)
+
+
+def _max_last(x):
+    """Max over the last axis (kept as a unit axis for tensors, whose
+    per-candidate scalars are (B, 1))."""
+    if _t(x):
+        return x.max(dim=-1, keepdim=True).values
+    return np.max(x, axis=-1)
+
+
 # =============================================================================
 # NoC transfer cost (shared by the mapper and the executor)
 # =============================================================================
@@ -261,6 +300,64 @@ def grid_dims(num_tiles, grid_aspect):
     return w, np.ceil(n / w)
 
 
+def xy_route_link_mask(src, dst, grid_w, grid_h, torus):
+    """0/1 occupancy mask over the ``MAX_LINKS`` grid links used by an XY
+    route from tile ``src`` to tile ``dst``.
+
+    Tiles are laid out row-major on a ``grid_w x grid_h`` grid.  Link
+    ``i < MAX_TILES`` is the horizontal link to the right of grid position
+    ``i``; link ``MAX_TILES + i`` the vertical link below it.  Links are
+    undirected.  XY routing moves along the source row first, then along
+    the destination column; on a torus each dimension takes the
+    wrap-around direction when strictly shorter (``2*delta > extent``;
+    ties go the mesh way).  A negative ``src``/``dst`` (no tile) yields an
+    empty route.  Inputs broadcast (numpy, or tensors on one device); the
+    link axis is appended last."""
+    dev = _device_of(src, dst, grid_w, grid_h, torus)
+    links = _arange(MAX_TILES, dev)
+    s = _f64(src, dev)[..., None]
+    d = _f64(dst, dev)[..., None]
+    w = _maximum(_f64(grid_w, dev), 1.0)[..., None]
+    h = _maximum(_f64(grid_h, dev), 1.0)[..., None]
+    wrap_ok = _f64(torus, dev)[..., None] > 0
+    sr = _floor_divide(s, w)
+    sc = s - sr * w
+    dr = _floor_divide(d, w)
+    dc = d - dr * w
+    lr = _floor_divide(links, w)
+    lc = links - lr * w
+    valid = (s >= 0) & (d >= 0)
+    # horizontal segment: along the source row
+    cmin = _minimum(sc, dc)
+    cmax = _maximum(sc, dc)
+    hwrap = wrap_ok & (2.0 * (cmax - cmin) > w)
+    inside_h = (lc >= cmin) & (lc < cmax)
+    outside_h = (lc >= cmax) | (lc < cmin)
+    use_h = valid & (lr == sr) & _where(hwrap, outside_h, inside_h)
+    # vertical segment: along the destination column
+    rmin = _minimum(sr, dr)
+    rmax = _maximum(sr, dr)
+    vwrap = wrap_ok & (2.0 * (rmax - rmin) > h)
+    inside_v = (lr >= rmin) & (lr < rmax)
+    outside_v = (lr >= rmax) | (lr < rmin)
+    use_v = valid & (lc == dc) & (lr < h) & _where(vwrap, outside_v, inside_v)
+    return _cat_last([_where(use_h, 1.0, 0.0), _where(use_v, 1.0, 0.0)])
+
+
+def dram_channel_one_hot(tile_idx, dram_channels):
+    """One-hot (..., MAX_DRAM_CHANNELS) selector of the DRAM channel that
+    serves ``tile_idx``'s traffic: addresses interleave across channels
+    by owner tile (``tile mod dram_channels``).  A negative tile index
+    selects no channel."""
+    dev = _device_of(tile_idx, dram_channels)
+    ch = _arange(MAX_DRAM_CHANNELS, dev)
+    t = _f64(tile_idx, dev)[..., None]
+    n = _clip(_f64(dram_channels, dev), 1.0,
+              float(MAX_DRAM_CHANNELS))[..., None]
+    sel = t - _floor_divide(t, n) * n
+    return _where((ch == sel) & (t >= 0), 1.0, 0.0)
+
+
 def split_op_fields(op, axis, kf):
     """Array mirror of ``ir.slice_op``: even 1/k slice of a MAC op along
     OC (axis 0), B (1) or IC (2).  ``axis`` may be a host int (one axis
@@ -288,18 +385,35 @@ def split_op_fields(op, axis, kf):
 # =============================================================================
 
 def pipeline_bounds(makespan_s, tile_busy_max_s, dram_bytes, dram_gbps,
-                    noc_busy_s):
-    """Steady-state initiation interval of a pipelined schedule, the
-    aggregate tier: ``II = min(makespan, max(tile, DRAM, NoC bounds))``
-    (see the reference's docstring for the composition)."""
+                    noc_busy_s, chan_bytes=None, dram_channels=None,
+                    link_busy_s=None):
+    """Steady-state initiation interval of a pipelined schedule:
+    ``II = min(makespan, max(tile, DRAM, NoC bounds))`` (see the
+    reference's docstring for the composition).
+
+    The link tier passes ``chan_bytes`` (..., MAX_DRAM_CHANNELS), the
+    chip's ``dram_channels`` and ``link_busy_s`` (..., MAX_LINKS): the
+    busiest channel at ``dram_gbps / dram_channels`` and the busiest link
+    are two more lower bounds max'd into the bottleneck, reported as
+    ``ii_chan_bound_s`` and ``ii_link_bound_s``; the aggregate keys keep
+    their bits, so ``II(link) >= II(aggregate)``."""
     dram_bound = _div(dram_bytes, dram_gbps * 1e9)
     bottleneck = _maximum(_maximum(tile_busy_max_s, dram_bound), noc_busy_s)
-    return {
+    out = {
         "ii_tile_bound_s": tile_busy_max_s,
         "ii_dram_bound_s": dram_bound,
         "ii_noc_bound_s": noc_busy_s,
-        "ii_s": _minimum(makespan_s, bottleneck),
     }
+    if chan_bytes is not None:
+        n_ch = _clip(dram_channels, 1.0, float(MAX_DRAM_CHANNELS))
+        chan_bound = _div(_max_last(chan_bytes),
+                          _div(dram_gbps, n_ch) * 1e9)
+        link_bound = _max_last(link_busy_s)
+        bottleneck = _maximum(_maximum(bottleneck, chan_bound), link_bound)
+        out["ii_chan_bound_s"] = chan_bound
+        out["ii_link_bound_s"] = link_bound
+    out["ii_s"] = _minimum(makespan_s, bottleneck)
+    return out
 
 
 def steady_state_energy(energy_total_pj, leakage_pj, leak_rate_pj_per_s,

@@ -18,10 +18,9 @@ walk over numpy float64 scalars, through a ``CostModel`` built on
 ``"cpu"``, so it runs without a card and gives the reference oracle's
 bits.  What runs on the card is the batched executor fed from the same
 plans (``simulator.batched.batch_simulate`` / ``simulate_plans``) and the
-engine's ``exact_mapper="python"`` path.
-
-The aggregate fidelity tier is ported; ``fidelity="link"`` raises
-(ROADMAP.md A5-link).
+engine's ``exact_mapper="python"`` path.  Both fidelity tiers run: the
+link tier adds per-link XY-routed NoC and per-channel DRAM occupancy to
+the throughput-mode II.
 """
 from __future__ import annotations
 
@@ -35,10 +34,12 @@ from ..arch import ChipConfig, Interconnect
 from ..calibrate.asap7 import CalibrationTable, DEFAULT_CALIB
 from ..ir import OpNode, WorkloadGraph, slice_op
 from .area import chip_area, tile_area
-from .costs import (CACHE_FRAC, FIDELITIES, OP_COST_KEYS, TILE_COST_KEYS,
-                    ActivationCache, cost_model, noc_transfer_energy_pj,
-                    noc_transfer_seconds, pipeline_bounds,
-                    steady_state_energy)
+from .costs import (CACHE_FRAC, FIDELITIES, MAX_DRAM_CHANNELS, MAX_LINKS,
+                    OP_COST_KEYS, TILE_COST_KEYS, ActivationCache,
+                    cost_model, dram_channel_one_hot, grid_dims,
+                    noc_transfer_energy_pj, noc_transfer_seconds,
+                    pipeline_bounds, steady_state_energy,
+                    xy_route_link_mask)
 from .modules import HOST, tile_cost_dict
 from .outputs import EnergyBreakdown, OpResult, SimResult, TileBreakdown
 from .tile import _PATH_NAME, _ROOFLINE_NAME, OpExec, TileSim, op_cost_dict
@@ -79,14 +80,10 @@ def noc_hops(interconnect: Interconnect, num_tiles: int) -> int:
 
 
 def check_fidelity(fidelity: str) -> None:
-    """Refuse an unknown fidelity tier, and the link tier, not ported."""
+    """Refuse an unknown fidelity tier."""
     if fidelity not in FIDELITIES:
         raise ValueError(
             f"unknown fidelity {fidelity!r}; supported: {FIDELITIES}")
-    if fidelity != "aggregate":
-        raise NotImplementedError(
-            "fidelity='link' is not ported yet: ROADMAP.md queue item "
-            "A5-link (the link-fidelity tier)")
 
 
 class ChipSim:
@@ -107,6 +104,17 @@ class ChipSim:
         self.tiles = [TileSim(t, calib, CACHE_FRAC) for t in self.templates]
         self.hops = noc_hops(chip.interconnect, len(self.tiles))
         self.ref_clock_hz = chip.ref_clock_mhz * 1e6
+        # link-fidelity topology: row-major tile grid + per-tile DRAM
+        # channel interleave (precomputed -- the walk only gathers)
+        n = len(self.tiles)
+        gw, gh = grid_dims(float(n), chip.grid_aspect)
+        self.grid_w, self.grid_h = float(gw), float(gh)
+        tidx = np.arange(n, dtype=np.float64)
+        self._link_mask = xy_route_link_mask(
+            tidx[:, None], tidx[None, :], self.grid_w, self.grid_h,
+            float(chip.torus))  # (src, dst, MAX_LINKS)
+        self._chan_onehot = dram_channel_one_hot(
+            tidx, float(chip.dram_channels))  # (tile, MAX_DRAM_CHANNELS)
         # (n_tiles,) tile-field arrays for the vectorized static-cost
         # pre-pass (one CostModel query per plan instead of one scalar
         # query per op -- the per-op walk only runs the DRAM combine)
@@ -192,6 +200,13 @@ class ChipSim:
         return float(noc_transfer_energy_pj(
             bytes_, self.calib.e_noc_pj_per_byte_hop, self.hops))
 
+    def link_seconds(self, bytes_: float) -> float:
+        """Store-and-forward occupancy of ONE grid link by a transfer of
+        ``bytes_`` (hop count is per-link by construction)."""
+        return float(noc_transfer_seconds(
+            bytes_, self.chip.noc_bytes_per_cycle, 1.0,
+            self.chip.noc_base_cycles, self.ref_clock_hz))
+
     # ------------------------------------------------------------------ run
     def run(self, plan: ExecutionPlan) -> SimResult:
         if plan.mode not in SCHEDULE_MODES:
@@ -224,6 +239,11 @@ class ChipSim:
         # burst-aligned DRAM bytes and NoC transfer seconds of one batch
         dram_bytes_total = 0.0
         noc_busy_s = 0.0
+        # link-fidelity occupancy vectors: per-link XY-routed NoC seconds
+        # and per-channel (tile-interleaved) DRAM bytes of one batch
+        link = self.fidelity == "link"
+        link_occ = np.zeros(MAX_LINKS, np.float64)
+        chan_occ = np.zeros(MAX_DRAM_CHANNELS, np.float64)
 
         fused_map: Dict[int, List[int]] = {}
         for j, nd in enumerate(g.nodes):
@@ -256,6 +276,9 @@ class ChipSim:
                     cache_kind = "noc"             # cross-tile DMA
                     extra_noc_s += self.noc_seconds(per_pred)
                     chip_energy.noc += self.noc_energy_pj(per_pred)
+                    if link:
+                        link_occ = link_occ + self._link_mask[src, tidx0] \
+                            * self.link_seconds(per_pred)
             if not op.preds:
                 dram_rd += float(op.bytes_in)      # graph input
 
@@ -279,15 +302,20 @@ class ChipSim:
                 t_fin = t_start + ex.seconds
                 tile_finish[tidx0] = t_fin
                 dram_bytes_total += ex.dram_bytes
+                if link:
+                    chan_occ = chan_occ + self._chan_onehot[tidx0] \
+                        * ex.dram_bytes
                 self._account(breakdowns[tidx0], op, ex, chip_energy)
                 op_results.append(OpResult(i, tidx0, ex.path, t_start, t_fin,
                                            ex.cycles, ex.energy, ex.roofline,
                                            1, cache_kind))
             else:
-                t_fin, split_dram_b, reduce_s = self._run_split(
-                    i, op, pl, tile_finish, t_dep, extra_noc_s, dram_rd,
-                    dram_wr, bw_share, breakdowns, chip_energy, op_results,
-                    cache_kind, static, rec_of[i])
+                t_fin, split_dram_b, reduce_s, link_occ, chan_occ = \
+                    self._run_split(
+                        i, op, pl, tile_finish, t_dep, extra_noc_s, dram_rd,
+                        dram_wr, bw_share, breakdowns, chip_energy,
+                        op_results, cache_kind, static, rec_of[i],
+                        link, link_occ, chan_occ)
                 dram_bytes_total += split_dram_b
                 noc_busy_s += reduce_s
 
@@ -328,7 +356,8 @@ class ChipSim:
         if plan.mode == "throughput":
             pipeline = self._steady_state(
                 makespan, breakdowns, dram_bytes_total, noc_busy_s,
-                chip_energy, leak_rate_pj_per_s, total_macs)
+                chip_energy, leak_rate_pj_per_s, total_macs,
+                chan_occ if link else None, link_occ if link else None)
         return SimResult(
             workload=g.name, arch=self.chip.name, latency_s=makespan,
             energy_pj=chip_energy.total_pj, area_mm2=area, peak_tops=peak_tops,
@@ -340,18 +369,23 @@ class ChipSim:
     # ---------------------------------------------- throughput steady state
     def _steady_state(self, makespan, breakdowns, dram_bytes_total,
                       noc_busy_s, chip_energy, leak_rate_pj_per_s,
-                      total_macs) -> Dict[str, float]:
+                      total_macs, chan_occ=None,
+                      link_occ=None) -> Dict[str, float]:
         """Throughput-mode steady state (§3.2): replay successive batches
         with a per-batch offset of II -- the bottleneck-resource occupancy
         from ``costs.pipeline_bounds``, the same composition the batched
         executor evaluates.  Reports the initiation interval, the
         pipeline-fill latency (= the one-batch makespan), the per-resource
         bounds, and the steady-state per-inference energy (leakage
-        re-charged over II)."""
+        re-charged over II).  The link tier passes its per-channel DRAM and
+        per-link NoC occupancy vectors through to the II max."""
         tile_busy_max = max((b.active_s for b in breakdowns), default=0.0)
         pipe = {k: float(v) for k, v in pipeline_bounds(
             makespan, tile_busy_max, dram_bytes_total, self.chip.dram_gbps,
-            noc_busy_s).items()}
+            noc_busy_s, chan_bytes=chan_occ,
+            dram_channels=float(self.chip.dram_channels)
+            if chan_occ is not None else None,
+            link_busy_s=link_occ).items()}
         ii = pipe["ii_s"]
         pipe["fill_latency_s"] = makespan
         pipe["dram_bytes_per_batch"] = dram_bytes_total
@@ -368,11 +402,13 @@ class ChipSim:
     # ----------------------------------------------------------- split path
     def _run_split(self, i, op, pl, tile_finish, t_dep, extra_noc_s,
                    dram_rd, dram_wr, bw_share, breakdowns, chip_energy,
-                   op_results, cache_kind, static, rec0):
+                   op_results, cache_kind, static, rec0, link, link_occ,
+                   chan_occ):
         """Even split along OC / B / IC with explicit reduce cost (Eq. 3).
-        Returns ``(t_fin, dram_bytes, reduce_s)`` -- the finish time plus
-        the split's aligned DRAM traffic and NoC reduce occupancy for the
-        throughput-mode resource accounting."""
+        Returns ``(t_fin, dram_bytes, reduce_s, link_occ, chan_occ)`` --
+        the finish time plus the split's aligned DRAM traffic and NoC
+        reduce occupancy for the throughput-mode resource accounting
+        (the per-channel / per-link vectors updated on the link tier)."""
         k = len(pl.tiles)
         finishes = []
         slice_out = op.bytes_out / k
@@ -386,17 +422,22 @@ class ChipSim:
             tile_finish[tidx] = t_fin
             finishes.append(t_fin)
             dram_bytes += ex.dram_bytes
+            if link:
+                chan_occ = chan_occ + self._chan_onehot[tidx] * ex.dram_bytes
             self._account(breakdowns[tidx], sub, ex, chip_energy)
             op_results.append(OpResult(i, tidx, ex.path, t_start, t_fin,
                                        ex.cycles, ex.energy, ex.roofline,
                                        k, cache_kind))
         # Eq. 3: C_reduce = max_i( ceil(B_out_i / B_NoC) + Delta_NoC )
         reduce_s = self.noc_seconds(slice_out)
-        for _ in pl.tiles[1:]:
+        for tidx in pl.tiles[1:]:
             chip_energy.noc += self.noc_energy_pj(slice_out)
+            if link:
+                link_occ = link_occ + self._link_mask[tidx, pl.tiles[0]] \
+                    * self.link_seconds(slice_out)
         t_fin = max(finishes) + reduce_s
         tile_finish[pl.tiles[0]] = max(tile_finish[pl.tiles[0]], t_fin)
-        return t_fin, dram_bytes, reduce_s
+        return t_fin, dram_bytes, reduce_s, link_occ, chan_occ
 
     @staticmethod
     def _account(b: TileBreakdown, op: OpNode, ex,

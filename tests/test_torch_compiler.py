@@ -275,8 +275,6 @@ def test_stack_plan_tables_and_batch_simulate_refusals(genomes):
     cfgs = P_engine.genomes_to_configs(genomes[:2])
     with pytest.raises(ValueError, match="burst"):
         P_batched.batch_simulate(plans, cfgs, mode="burst", device="cpu")
-    with pytest.raises(NotImplementedError, match="A5-link"):
-        P_batched.batch_simulate(plans, cfgs, fidelity="link", device="cpu")
 
 
 # ------------------------------------------------------------ the engine

@@ -4,8 +4,8 @@ duplicate rows (``pareto_mask_device`` on the CPU equal to
 ``pareto_mask``); the host logic of ``run_sweep``, ``run_ga(loop="host")``
 and ``run_bayes`` bit for bit against the reference's through one
 deterministic stub engine; the sweep and the GA end to end on real exact
-engines (genomes equal, metrics within rel 1e-9); and the refusals of what
-is not ported (A8, A10)."""
+engines (genomes equal, metrics within rel 1e-9); the defaults (the scan
+engine) on the CPU; and the refusals of what is not ported (A10)."""
 import numpy as np
 import pytest
 
@@ -253,15 +253,27 @@ def test_ga_device_loops_raise_naming_a10(stub_sweeps, loop):
 
 
 def test_scan_defaults_raise_naming_a8(stub_sweeps):
-    with pytest.raises(NotImplementedError, match="A8"):
-        P_sweep.run_sweep(WORKLOADS, samples_per_stratum=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        P_sweep.evaluate_genomes(stub_sweeps[0][0].genomes[:2], WORKLOADS)
-    with pytest.raises(NotImplementedError, match="A8"):
-        P_sweep.evaluate_genomes_reference(stub_sweeps[0][0].genomes[:2],
-                                           WORKLOADS)
-    with pytest.raises(NotImplementedError, match="A8"):   # no engine
-        P_ga.run_ga(stub_sweeps[0][0], 200.0, loop="host")
+    """The frontends' defaults build the reference's default engine, the
+    scan backend, which runs on the CPU when asked for it (and on the
+    card otherwise: without one they raise instead of falling back)."""
+    s = P_sweep.run_sweep(WORKLOADS, samples_per_stratum=1, device="cpu")
+    assert len(s.genomes) == 15 and np.isfinite(s.latency).all()
+    g = s.genomes[:3]
+    one = P_sweep.evaluate_genomes(g, WORKLOADS, device="cpu")
+    assert one["meta"]["backend"] == "scan"
+    for k in ("latency", "energy", "tops_w"):
+        assert np.array_equal(one[k], getattr(s, k)[:3]), k
+    loop = P_sweep.evaluate_genomes_reference(g, WORKLOADS, device="cpu")
+    for k in ("latency", "energy", "tops_w"):
+        err = np.abs(loop[k] - one[k]) / np.maximum(np.abs(one[k]), 1e-300)
+        assert err.max() <= REL_TOL, k
+    res = P_ga.run_ga(stub_sweeps[0][0], 200.0, P_ga.GAConfig(
+        population=4, generations=1, seed_top_k=2), loop="host",
+        device="cpu")                                      # no engine
+    assert np.isfinite(res.best_fitness) and res.evaluated == 8
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            P_sweep.evaluate_genomes(g, WORKLOADS)
     # exact=True without an engine builds the exact one, which runs
     s = P_sweep.run_sweep(["kan"], samples_per_stratum=1, exact=True,
                           device="cpu")

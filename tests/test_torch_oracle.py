@@ -245,8 +245,6 @@ def test_plan_tables_match_oracle_on_golden_runs(wname, mode):
 
 def test_chipsim_refuses_link_fidelity_and_unknown_modes():
     plan, _ = _port_run("kan", "latency")
-    with pytest.raises(NotImplementedError, match="A5-link"):
-        ChipSim(hetero_bls(), fidelity="link")
     with pytest.raises(ValueError, match="fidelity"):
         ChipSim(hetero_bls(), fidelity="cycle")
     bad = dataclasses.replace(plan, mode="burst")
@@ -359,8 +357,3 @@ def test_unmappable_pairs_score_inf(genomes, monkeypatch):
     for k in _COLS:
         assert np.array_equal(got[k], want[k]), k
 
-
-@pytest.mark.parametrize("backend", ["oracle", "batched"])
-def test_link_fidelity_still_raises(backend):
-    with pytest.raises(NotImplementedError, match="A5-link"):
-        _port("latency", backend=backend, fidelity="link")

@@ -172,14 +172,8 @@ def test_reserve_shapes_and_warmup_leave_results_unchanged(genomes):
 
 def test_search_refusals(cfgs):
     ws = [P_engine.prepared_workload("kan")]
-    with pytest.raises(NotImplementedError, match="A5"):
-        P_bm.search_population(ws, cfgs, fidelity="link", device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        P_bm.map_and_simulate(ws[0], cfgs, fidelity="link", device="cpu")
     with pytest.raises(ValueError, match="schedule mode"):
         P_bm.search_population(ws, cfgs, mode="serving", device="cpu")
     with pytest.raises(ValueError, match="fidelity"):
         P_bm.search_and_simulate(ws[0], cfgs, fidelity="exact",
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        _engine(fidelity="link")
