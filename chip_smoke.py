@@ -13,7 +13,7 @@ script exits non-zero without printing a result):
                 ``nvcc`` for ``sm_90a``, one process each, all started
                 together;
 3. kernel    -- dse_eval against its plain PyTorch version on the card,
-                at the main path's shapes (4,096 genomes x the op rows of
+                at the main path's shapes (2,048 genomes x the op rows of
                 all 20 workloads) and on the no-hostable-tile case: the
                 seconds and the energy bit for bit; times both with CUDA
                 events, the kernel also by torch.profiler's device time
@@ -21,9 +21,10 @@ script exits non-zero without printing a result):
                 and computes its bound;
 4. main path -- ``EvalEngine(workload_names(), EngineConfig(
                 backend="batched", mode="latency"))`` on ``cuda`` scores
-                4,096 random genomes on the 20 workloads, then again
+                2,048 random genomes on the 20 workloads (cut from 4,096
+                when phase 21 came, to keep the run within 900 s), then again
                 (all memo hits);
-5. prefilter -- ``roofline_bounds`` on the same 4,096 x 20 (the kernel's
+5. prefilter -- ``roofline_bounds`` on the same 2,048 x 20 (the kernel's
                 caller).  Phases 4 and 5 are the DSE path: the launch
                 counters are zeroed just before phase 4 and read just
                 after phase 5, and dse_eval must have launched;
@@ -147,7 +148,28 @@ script exits non-zero without printing a result):
                 latency mode (bit for bit phase 7's card rows); the
                 ``exact_mapper="python"`` engine bit for bit the exact one,
                 and the oracle engine on the first 16 within rel 1e-9, on
-                the link tier in throughput mode; seconds of each part.
+                the link tier in throughput mode; seconds of each part;
+21. pipeline -- (right after phase 20) the §4 study on ``resnet50_int8`` and
+                ``kan`` (README's quickstart), cut from the paper's 20
+                workloads, 3 seeds, about 980 K sweep samples a seed and
+                100 generations to 2 workloads, seeds 0 and 1, 8 genomes a
+                stratum (120 a seed) and 4 generations (population 200, the
+                paper's): (a) on one shared exact engine on ``cuda``, seed
+                0's sweep, then ``run_ga(loop="device")`` and
+                ``run_ga(loop="fused")`` at 200 mm^2, bit for bit each other,
+                and the fused loop's device configs of its final population
+                bit for bit ``genomes_to_configs``; memo fill and hits; (b)
+                ``run_pipeline`` over the five brackets with a checkpoint on
+                ``cuda``, then the same study on ``cpu`` (the same sweep
+                genomes, best genome per (seed, bracket) and front genomes;
+                front points and fitness within rel 1e-9), then a rerun on
+                ``cuda`` against the same directory (every stage resumed,
+                bit for bit); (c) seed 0 at 100 and 200 mm^2 stopped by an
+                ``on_stage`` callback after its first refinement and rerun,
+                bit for bit an uninterrupted run in another directory, with
+                ``results.sqlite``'s row count and versions; seconds of each
+                part and stage, evaluations, the front's size, the best
+                fitness and mean iso-area savings per bracket.
 
 Then one JSON line describing the kernels (times, launches, bounds) and,
 as the last line, ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
@@ -179,14 +201,17 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
 DEVICE = "cuda"
-POPULATION = 4096
+# phase 4 (and phase 3's shapes): cut from 4,096 so that the run with
+# phase 21 stays under 900 s (phase 4 took 373.9 s at 4,096 on an NVIDIA
+# H100 80GB HBM3 at 700 W; PERF.md)
+POPULATION = 2048
 THROUGHPUT_POPULATION = 1024
 PARITY_POPULATION = 64
 THROUGHPUT_WORKLOADS = ["kan", "resnet50_int8", "hyena_1_3b",
                         "llama7b_int4"]
 PARITY_WORKLOADS = ["kan", "resnet50_int8", "hyena_1_3b"]
 # phase 17: the exact engine on the first genomes of phases 4 and 6 (cut
-# from 4,096 to keep the run's time: phase 4 alone takes 240-490 s)
+# to keep the run's time: phase 4 at 4,096 took 240-490 s)
 EXACT_POPULATION, EXACT_THROUGHPUT_POPULATION = 1024, 256
 # phase 18: the search frontends on PARITY_WORKLOADS
 SEARCH_SEEDS, SEARCH_SAMPLES, SEARCH_BRACKET = (0, 1), 8, 200.0
@@ -204,6 +229,14 @@ SCAN_POPULATION, SCAN_THROUGHPUT_POPULATION = 1024, 256
 LINK_POPULATION = 256
 NVDLA_PAPER_RATIOS = {"nv_small": (1.08, 1.41, 1.77),
                       "nv_full": (1.39, 1.19, 1.50)}
+# phase 21: the §4 pipeline on README's quickstart study, cut from the
+# paper's (20 workloads, 3 seeds, ~980 K sweep samples a seed, 100
+# generations) to 2 workloads, 2 seeds, 8 genomes a stratum (120 a seed)
+# and 4 generations; the population stays the paper's 200
+PIPELINE_WORKLOADS = ["resnet50_int8", "kan"]
+PIPELINE_SEEDS, PIPELINE_SAMPLES, PIPELINE_BRACKET = (0, 1), 8, 200.0
+PIPELINE_GA = dict(population=200, generations=4, early_stop=4)
+RESUME_BRACKETS = (100.0, 200.0)
 
 # the LM serving path: Jamba-v0.1 at full width, one period of 8 layers
 LM_ARCH = "jamba-v0.1-52b"
@@ -477,9 +510,9 @@ def dse_launches(np, dev):
 
 
 def _dse_phases(torch, np, dev, args, record):
-    """Phases 3-7 and 17-20, the DSE evaluation path, the search on top of
-    it, the host oracle beside it and the scan and link tiers; returns the
-    kernel line of
+    """Phases 3-7 and 17-21, the DSE evaluation path, the search on top of
+    it, the host oracle beside it, the scan and link tiers and the §4
+    pipeline; returns the kernel line of
     ``dse_eval``.  Its tensors are freed
     when it returns."""
     from repro_torch.core.arch import hetero_bls
@@ -706,6 +739,7 @@ def _dse_phases(torch, np, dev, args, record):
     record["oracle"] = _oracle_phase(torch, np, dev, g2, card_rows)
     record["scan_link"] = _scan_link_phase(torch, np, dev, genomes, res,
                                            g1, rt, g2, card_rows, record)
+    record["pipeline"] = _pipeline_phase(torch, np, dev)
 
     return {
         "name": "dse_eval", "route": "cuda",
@@ -1349,6 +1383,213 @@ def _scan_link_phase(torch, np, dev, genomes, res4, g1, rt, g2, card_rows,
            f"{secs['link_exact_parity']:.3f} s); oracle engine on {n_or} "
            f"within rel {oracle_worst:.3e} (limit 1e-9, "
            f"{secs['link_oracle']:.3f} s)")
+    return out
+
+
+def _same_study(np, a, b, what):
+    """Two ``PipelineResult``s bit for bit: sweeps, per (seed, bracket)
+    results, the merged front and the evaluation count."""
+    check(a.front_points.tobytes() == b.front_points.tobytes() and
+          a.front_genomes.tobytes() == b.front_genomes.tobytes(),
+          f"{what}: fronts differ")
+    check(a.evaluated == b.evaluated, f"{what}: evaluations differ")
+    for s in a.seeds:
+        for f in ("genomes", "latency", "energy", "tops_w"):
+            check(getattr(a.sweeps[s], f).tobytes()
+                  == getattr(b.sweeps[s], f).tobytes(),
+                  f"{what}: seed {s} sweep {f} differs")
+        check(a.results[s].keys() == b.results[s].keys(),
+              f"{what}: seed {s} brackets differ")
+        for br, r in a.results[s].items():
+            q = b.results[s][br]
+            check(r.best_fitness == q.best_fitness and r.history == q.history
+                  and r.best_genome.tobytes() == q.best_genome.tobytes()
+                  and r.evaluated == q.evaluated, f"{what}: ({s}, {br}) GA "
+                  f"result differs")
+            for k in _ROWS:
+                check(np.asarray(r.best_metrics[k]).tobytes()
+                      == np.asarray(q.best_metrics[k]).tobytes(),
+                      f"{what}: ({s}, {br}) best {k} differs")
+
+
+def _pipeline_phase(torch, np, dev):
+    """Phase 21: the §4 pipeline on PIPELINE_WORKLOADS.  (a) the device GA
+    loop and the fused loop on one shared exact engine, bit for bit each
+    other, and the fused loop's device configs bit for bit
+    ``genomes_to_configs``; (b) ``run_pipeline`` with a checkpoint on the
+    card, held against the same study on the CPU, then replayed from its
+    checkpoint (every stage resumed, bit for bit); (c) a reduced study
+    interrupted after its first refinement and resumed, bit for bit an
+    uninterrupted run."""
+    import tempfile
+    from repro_torch.core.dse.api import EngineConfig
+    from repro_torch.core.dse.engine import EvalEngine, genomes_to_configs
+    from repro_torch.core.dse.ga import GAConfig, run_ga
+    from repro_torch.core.dse.ga_device import _configs_device, run_ga_fused
+    from repro_torch.core.dse.objective import AREA_BRACKETS
+    from repro_torch.core.dse.pipeline import run_pipeline
+    from repro_torch.core.dse.store import SqliteStore
+    from repro_torch.core.dse.sweep import run_sweep
+
+    cfg = GAConfig(**PIPELINE_GA)
+    secs = {}
+
+    def timed(key, fn):
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    # ---- (a) the two GA loops on one shared exact engine -------------------
+    eng = EvalEngine(PIPELINE_WORKLOADS, config=EngineConfig(backend="exact"),
+                     device=dev)
+    sw = timed("a_sweep", lambda: run_sweep(
+        PIPELINE_WORKLOADS, PIPELINE_SAMPLES, seed=0, engine=eng))
+    ga_d = timed("a_device", lambda: run_ga(
+        sw, PIPELINE_BRACKET, cfg, engine=eng, loop="device"))
+    check(ga_d is not None and np.isfinite(ga_d.best_fitness),
+          "(a) the device loop found no finite fitness")
+    # the fused loop on the same engine: its memo preloads the device
+    # loop's rows, and it searches the out-of-bracket children the device
+    # loop's prefilter skipped; then run_ga's fused loop replays warm
+    fused = timed("a_fused", lambda: run_ga_fused(
+        sw, PIPELINE_BRACKET, cfg, engine=eng, islands=1))
+    ga_f = timed("a_fused_warm", lambda: run_ga(
+        sw, PIPELINE_BRACKET, cfg, engine=eng, loop="fused"))
+    for r in (fused.result, ga_f):
+        check(ga_d.best_genome.tobytes() == r.best_genome.tobytes()
+              and ga_d.history == r.history
+              and ga_d.evaluated == r.evaluated,
+              "(a) run_ga device and fused loops differ")
+    tile, chip, area = _configs_device(
+        torch.as_tensor(fused.population, device=dev))
+    host = genomes_to_configs(fused.population)
+    for k, v in list(tile.items()) + list(chip.items()):
+        want = host["tile" if k in tile else "chip"][k]
+        check(v.cpu().numpy().tobytes()
+              == np.ascontiguousarray(want, np.float64).tobytes(),
+              f"(a) device config {k} differs from genomes_to_configs")
+    check(area.cpu().numpy().tobytes() == host["chip"]["chip_area"].tobytes(),
+          "(a) device chip area differs")
+    memo_fill = int(fused.memo.used.sum())
+    a_out = {"best_fitness": ga_d.best_fitness, "history": ga_d.history,
+             "evaluated": ga_d.evaluated, "memo_fill": memo_fill,
+             "memo_hits": fused.memo_hits, "fused_searches": fused.searches,
+             "engine_stats": dataclasses.asdict(eng.stats)}
+
+    # ---- (b) the study: card, CPU, replay ----------------------------------
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="pipeline_", dir=root)
+    try:
+        def study(device, ck):
+            events = []
+            res = run_pipeline(PIPELINE_WORKLOADS, seeds=PIPELINE_SEEDS,
+                               samples_per_stratum=PIPELINE_SAMPLES, cfg=cfg,
+                               checkpoint=os.path.join(tmp, ck),
+                               device=device, on_stage=events.append)
+            return res, events
+
+        card, ev_card = timed("b_card", lambda: study(dev, "card"))
+        check(all(np.isfinite(r.best_fitness) for by_b in card.results.values()
+                  for r in by_b.values()) and len(card.front_points) > 0,
+              "(b) a refinement found no finite fitness or the front is empty")
+        cpu, _ = timed("b_cpu", lambda: study("cpu", "cpu"))
+        for s in PIPELINE_SEEDS:
+            check(np.array_equal(card.sweeps[s].genomes, cpu.sweeps[s].genomes),
+                  f"(b) seed {s}: sweep genomes differ between card and CPU")
+            check(card.results[s].keys() == cpu.results[s].keys(),
+                  f"(b) seed {s}: refined brackets differ")
+            for b, r in card.results[s].items():
+                check(np.array_equal(r.best_genome,
+                                     cpu.results[s][b].best_genome),
+                      f"(b) ({s}, {b}): best genome differs card vs CPU")
+        check(np.array_equal(card.front_genomes, cpu.front_genomes),
+              "(b) front genomes differ between card and CPU")
+        rel = np.abs(card.front_points - cpu.front_points) \
+            / np.maximum(np.abs(cpu.front_points), 1e-300)
+        fit_rel = [abs(r.best_fitness - cpu.results[s][b].best_fitness)
+                   / max(abs(cpu.results[s][b].best_fitness), 1e-300)
+                   for s in PIPELINE_SEEDS for b, r in card.results[s].items()]
+        worst = max(float(rel.max(initial=0.0)), max(fit_rel, default=0.0))
+        check(worst <= 1e-9, f"(b) card vs CPU rel err {worst:.3e} > 1e-9")
+        replay, ev_replay = timed("b_replay", lambda: study(dev, "card"))
+        check(len(ev_replay) == len(ev_card)
+              and all(e.get("resumed") is True for e in ev_replay),
+              "(b) the replay recomputed a stage")
+        _same_study(np, card, replay, "(b) replay")
+        stage_s = dict(card.stage_seconds)
+        per_bracket = {}
+        for b in AREA_BRACKETS:
+            best = card.best(b)
+            if best is not None:
+                per_bracket[b] = (best.best_fitness,
+                                  float(np.mean(best.best_savings_per_wl)))
+
+        # ---- (c) interrupted after the first refinement, resumed -----------
+        class Stop(Exception):
+            pass
+
+        def tripwire(ev):
+            if ev["stage"] == "refine":
+                raise Stop
+
+        kw_c = dict(seeds=(0,), brackets=RESUME_BRACKETS,
+                    samples_per_stratum=PIPELINE_SAMPLES, cfg=cfg, device=dev)
+        ck_c = os.path.join(tmp, "resume")
+        try:
+            run_pipeline(PIPELINE_WORKLOADS, checkpoint=ck_c,
+                         on_stage=tripwire, **kw_c)
+            check(False, "(c) the tripwire did not stop the run")
+        except Stop:
+            pass
+        check(not [f for f in os.listdir(ck_c) if f.endswith(".tmp")],
+              "(c) a torn record was left behind")
+        resumed = timed("c_resume", lambda: run_pipeline(
+            PIPELINE_WORKLOADS, checkpoint=ck_c, **kw_c))
+        clean = timed("c_clean", lambda: run_pipeline(
+            PIPELINE_WORKLOADS, checkpoint=os.path.join(tmp, "clean"),
+            **kw_c))
+        _same_study(np, resumed, clean, "(c) resumed vs uninterrupted")
+        st = SqliteStore(os.path.join(ck_c, "results.sqlite"))
+        rows, versions = len(st), st.version_counts()
+        st.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out = {"secs": secs, "a": a_out, "stage_s": stage_s,
+           "evaluated": card.evaluated, "front": len(card.front_points),
+           "per_bracket": {str(b): v for b, v in per_bracket.items()},
+           "card_vs_cpu_max_rel_err": worst, "sqlite_rows": rows,
+           "sqlite_versions": versions}
+    brk = "; ".join(f"{b:.0f} mm^2 best {f:+.6f}, mean savings {m:+.4f}"
+                    for b, (f, m) in per_bracket.items())
+    _phase(21, "pipeline", f"(a) exact engine on {PIPELINE_WORKLOADS} on "
+           f"{dev}: sweep seed 0 x {PIPELINE_SAMPLES}/stratum "
+           f"({len(sw.genomes)} genomes, {secs['a_sweep']:.3f} s); GA at "
+           f"{PIPELINE_BRACKET:.0f} mm^2, {cfg.population} x "
+           f"{cfg.generations}: run_ga device ({secs['a_device']:.3f} s) == "
+           f"run_ga_fused ({secs['a_fused']:.3f} s: memo fill {memo_fill}, "
+           f"hits {fused.memo_hits} of {fused.result.evaluated}, "
+           f"{fused.searches} searches) == run_ga fused, warm "
+           f"({secs['a_fused_warm']:.3f} s) bit for bit (best "
+           f"{ga_d.best_fitness:+.6f}, {ga_d.evaluated} evaluated); fused "
+           f"configs == genomes_to_configs. (b) run_pipeline "
+           f"seeds {list(PIPELINE_SEEDS)} x {len(AREA_BRACKETS)} brackets, "
+           f"checkpointed: card {secs['b_card']:.3f} s (stages: "
+           + ", ".join(f"{k} {v:.3f}" for k, v in stage_s.items())
+           + f"), {card.evaluated} evaluations, front {len(card.front_points)}"
+           f"; {brk}; CPU {secs['b_cpu']:.3f} s, same sweeps, best genomes "
+           f"and front genomes, max rel err {worst:.3e} (limit 1e-9); replay "
+           f"{secs['b_replay']:.3f} s, every stage resumed, bit for bit. (c) "
+           f"seed 0 x brackets {list(RESUME_BRACKETS)} stopped after its "
+           f"first refinement, resumed in {secs['c_resume']:.3f} s == "
+           f"uninterrupted ({secs['c_clean']:.3f} s) bit for bit; "
+           f"results.sqlite {rows} rows, versions {versions}")
     return out
 
 

@@ -380,12 +380,13 @@ def _search_one(cm, T, chip, rows, max_ops: int, n_slots: int,
 
 
 def search_population(ws_list: Sequence[Dict[str, np.ndarray]],
-                      cfgs: Dict[str, Dict[str, np.ndarray]],
+                      cfgs: Optional[Dict[str, Dict[str, np.ndarray]]],
                       calib: CalibrationTable = DEFAULT_CALIB,
                       mode: str = "latency",
                       out_keys: Optional[Tuple[str, ...]] = None,
                       fidelity: str = "aggregate", device=None,
-                      placed=None) -> List[Dict[str, np.ndarray]]:
+                      placed=None, as_tensors: bool = False
+                      ) -> List[Dict[str, np.ndarray]]:
     """Exact search scoring of one candidate batch on a list of prepared
     workloads: per workload, one pass that maps and executes each active
     op row (``_search_one``).  Returns one result dict per workload: the
@@ -395,8 +396,16 @@ def search_population(ws_list: Sequence[Dict[str, np.ndarray]],
     tags: both schedule surfaces ride in the one pass).  Rows with ``ok ==
     False`` carry garbage metrics.  This is what ``EvalEngine(backend=
     "exact")`` runs per miss batch.  ``device``/``placed`` as in
-    ``map_and_simulate``."""
+    ``map_and_simulate``.
+
+    The fused GA loop builds its configs on the device: it passes
+    ``cfgs=None`` with ``placed``, and ``as_tensors=True`` to keep the
+    metric columns and ``ok`` on the device.  With no host configs every
+    tile slot is walked (slots past a candidate's tiles hold none, so the
+    results are the same) and ``area_mm2``/``peak_tops`` are left out."""
     _check_mode_fidelity("exact search", mode, fidelity)
+    if cfgs is None and placed is None:
+        raise ValueError("search_population needs cfgs or placed configs")
     device = resolve_device(device)
     cm = cost_model(calib, device)
     T, chip = placed if placed is not None else place_configs(cfgs, device)
@@ -404,15 +413,19 @@ def search_population(ws_list: Sequence[Dict[str, np.ndarray]],
         keys = tuple(out_keys)
     else:
         keys = SEARCH_KEYS + (LINK_KEYS if fidelity == "link" else ())
-    n_slots = _n_slots(cfgs)
+    n_slots = _n_slots(cfgs) if cfgs is not None else MAX_TILES
     results = []
     for ws in ws_list:
         out = _search_one(cm, T, chip, op_rows(ws), len(ws["op_type"]),
                           n_slots, float(ws["total_macs"]),
                           fidelity=fidelity)
-        res = {k: out[k].cpu().numpy() for k in keys + ("ok",)}
-        res["area_mm2"] = cfgs["chip"]["chip_area"]
-        res["peak_tops"] = cfgs["chip"]["peak_tops"]
+        if as_tensors:
+            res = {k: out[k] for k in keys + ("ok",)}
+        else:
+            res = {k: out[k].cpu().numpy() for k in keys + ("ok",)}
+        if cfgs is not None:
+            res["area_mm2"] = cfgs["chip"]["chip_area"]
+            res["peak_tops"] = cfgs["chip"]["peak_tops"]
         res["mode"] = mode
         results.append(res)
     return results

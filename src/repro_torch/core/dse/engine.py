@@ -59,7 +59,7 @@ from .batch_eval import batch_evaluate, prepare_configs, prepare_workload
 from .encoding import (FIELDS_PER_TILE, GENOME_LEN, IDX_ASPECT, IDX_DRAM,
                        IDX_DRAM_CH, IDX_ICONN, IDX_NOC_BPC, IDX_TOPO,
                        _TILE_FIELDS, decode)
-from .store import MemoryLRUStore, ResultStore
+from .store import MemoryLRUStore, ResultStore, TieredStore
 
 __all__ = ["EvalEngine", "EngineStats", "EngineConfig",
            "NonFiniteMetricsError", "genomes_to_configs", "genome_areas",
@@ -433,12 +433,22 @@ class EvalEngine:
         else:
             self.store = config.store
             if explicit_cap:
-                if not isinstance(self.store, MemoryLRUStore):
+                store = self.store
+                lru = store if isinstance(store, MemoryLRUStore) else (
+                    store.front if isinstance(store, TieredStore)
+                    and isinstance(store.front, MemoryLRUStore) else None)
+                if lru is None:
                     raise ValueError(
                         "memo_max cannot cap a store without an in-memory "
-                        "LRU tier")
-                self.store.resize(self.memo_max)
+                        "LRU tier -- size the store yourself and drop "
+                        "memo_max, or wrap it in a TieredStore with a "
+                        "MemoryLRUStore front")
+                lru.resize(self.memo_max)
         self.store.bind(self.context_key())
+        # export_memo's bulk views, keyed on the LRU tier's mutation stamp
+        # (_memo_stamp): a preload over an unchanged store skips the walk
+        self._export_cache: Dict[str, Tuple[tuple, Tuple[np.ndarray,
+                                                         np.ndarray]]] = {}
 
     def context_key(self) -> bytes:
         """``api.context_digest`` over this engine's config, framework and
@@ -596,6 +606,31 @@ class EvalEngine:
             raise ValueError(f"mode {mode!r} not in {SCHEDULE_MODES}")
         return mode
 
+    # ----------------------------------------------------------- score_batch
+    def score_batch(self, genomes: np.ndarray,
+                    mode: Optional[str] = None) -> Dict[str, np.ndarray]:
+        """The reentrant engine core: canonical (or raw) genomes in, this
+        backend's metrics out, one dispatch per ``batch`` rows -- no cache
+        interaction, no keep predicate, no request/hit/miss accounting
+        (only ``stats.dispatches`` counts).  The port compiles no shapes,
+        so a micro-batch is not padded.  Returns ``latency``/``energy``/
+        ``tops_w`` (N, W) and ``area`` (N,), bit for bit ``evaluate``'s
+        rows for the same genomes."""
+        mode = self._check_mode(mode)
+        genomes = np.asarray(genomes, dtype=np.int64).reshape(-1, GENOME_LEN)
+        n = len(genomes)
+        cfgs = self._configs(genomes)
+        area = np.asarray(cfgs["chip"]["chip_area"], np.float64).copy()
+        lat = np.zeros((n, len(self.workloads)))
+        en = np.zeros_like(lat)
+        tw = np.zeros_like(lat)
+        for s in range(0, n, self.batch):
+            chunk = np.arange(s, min(s + self.batch, n))
+            l, e, t = self._simulate(self._take(cfgs, chunk),
+                                     genomes[chunk], mode)
+            lat[chunk], en[chunk], tw[chunk] = l, e, t
+        return {"latency": lat, "energy": en, "tops_w": tw, "area": area}
+
     # ------------------------------------------------------------- evaluate
     def evaluate(self, genomes: np.ndarray,
                  keep: Optional[Callable[[np.ndarray], np.ndarray]] = None,
@@ -705,6 +740,70 @@ class EvalEngine:
                          "requests": len(genomes), "hits": 0,
                          "misses": len(genomes), "skips": 0,
                          "hit_rate": 0.0}}
+
+    # --------------------------------------------------- device-memo sync
+    def export_memo(self, mode: Optional[str] = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Bulk view of the store's in-memory tier for one schedule mode:
+        ``(canon (N, GENOME_LEN) int64, rows (N, 3, W) float64)`` in LRU
+        order -- what ``device_memo.memo_from_store`` preloads.  Only the
+        enumerable LRU tier exports (a sqlite back tier is keyed by
+        digests); no stats or recency side effects.  Views are cached per
+        mode against the tier's mutation stamp; callers must treat them
+        as read-only."""
+        mode = self._check_mode(mode)
+        stamp = self._memo_stamp()
+        cached = self._export_cache.get(mode)
+        if stamp is not None and cached is not None and cached[0] == stamp:
+            return cached[1]
+        tag = mode.encode() + b":"
+        W = len(self.workloads)
+        d = self.store.lru_dict()
+        genomes: List[np.ndarray] = []
+        rows: List[np.ndarray] = []
+        for k, row in (list(d.items()) if d else ()):
+            if not k.startswith(tag):
+                continue
+            genomes.append(np.frombuffer(k[len(tag):], np.int64))
+            rows.append(np.stack([np.asarray(a, np.float64) for a in row]))
+        if not genomes:
+            out = (np.zeros((0, GENOME_LEN), np.int64),
+                   np.zeros((0, 3, W), np.float64))
+        else:
+            out = (np.asarray(genomes, np.int64),
+                   np.asarray(rows, np.float64))
+        if stamp is not None:
+            self._export_cache[mode] = (stamp, out)
+        return out
+
+    def _memo_stamp(self) -> Optional[tuple]:
+        """Mutation stamp of the store's enumerable LRU tier: changes
+        exactly when its membership changes (accepted puts, evictions);
+        None when the tier keeps no stats, which disables the cache."""
+        front = getattr(self.store, "front", self.store)
+        stats = getattr(front, "stats", None)
+        if stats is None:
+            return None
+        return (id(front), stats.puts, stats.evictions)
+
+    def import_memo(self, canon: np.ndarray, rows: np.ndarray,
+                    mode: Optional[str] = None) -> int:
+        """Offer drained device-memo entries to the host store
+        (put-if-absent; a persistent tier makes them durable).  ``canon``
+        (N, GENOME_LEN) canonical genomes, ``rows`` (N, 3, W).  Returns
+        the number of rows offered."""
+        mode = self._check_mode(mode)
+        tag = mode.encode() + b":"
+        canon = np.asarray(canon, np.int64).reshape(-1, GENOME_LEN)
+        rows = np.asarray(rows, np.float64)
+        if rows.shape[:1] != (len(canon),) or rows.ndim != 3 \
+                or rows.shape[1] != 3:
+            raise ValueError(f"rows shape {rows.shape} does not match "
+                             f"{len(canon)} genomes x (3, W)")
+        for g, r in zip(canon, rows):
+            self.store.put(tag + self._key(g),
+                           (r[0].copy(), r[1].copy(), r[2].copy()))
+        return len(canon)
 
     def reserve_shapes(self, max_batch: int = 64) -> None:
         """The reference's signature.  The reference pre-registers its

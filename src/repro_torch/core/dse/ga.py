@@ -1,17 +1,19 @@
 """Stage 2 -- per-area-budget genetic-algorithm refinement (paper §4.5).
 
-Port of ``repro/core/dse/ga.py``'s numpy generation loop
-(``run_ga(loop="host")``).  Paper settings: population 200, 100
+Port of ``repro/core/dse/ga.py``.  Paper settings: population 200, 100
 generations, tournament selection of size 5, 80 % crossover, 20 %
 mutation, 10 % elitism, seeded from the top 50 sweep individuals at each
 budget, ten-generation no-improvement early stop.  Fitness is Eq. 8
-against the sweep's best-homogeneous baseline at the same bracket.  Every
-draw comes from ``np.random.default_rng``, so the same seed and the same
-metrics give the reference's genomes.
+against the sweep's best-homogeneous baseline at the same bracket.
 
-``loop="device"`` (the reference's default: the jitted generation loop
-of ``ga_device``) and ``loop="fused"`` are not ported (ROADMAP.md queue
-item A10) and raise before anything is scored.
+``run_ga`` delegates to the device generation loop
+(``ga_device.run_ga_device``) by default: genetics and canonicalization
+on the device, scoring through the engine -- absent an explicit
+``engine``, the exact search backend.  ``loop="fused"`` runs the whole
+refinement against the device-resident memo (``ga_device.run_ga_fused``,
+one island).  The numpy loop below (``loop="host"``) draws from
+``np.random.default_rng``, so the same seed and the same metrics give the
+reference's genomes.
 """
 from __future__ import annotations
 
@@ -82,14 +84,19 @@ def run_ga(sweep: SweepResult, bracket: float,
            ) -> Optional[GAResult]:
     """GA refinement at one area budget, seeded from the sweep.
 
+    ``loop="device"`` (default) runs ``ga_device.run_ga_device`` and
+    ``loop="fused"`` ``ga_device.run_ga_fused`` with one island (the same
+    genomes; it needs a local exact engine and takes no
+    ``on_generation``); without an ``engine`` both score through
+    ``EvalEngine(backend="exact", nonfinite="skip")`` on ``device``.
     ``loop="host"`` runs the numpy generation loop.  Scoring goes through
     a (optionally shared) ``EvalEngine``: the elites re-entering every
     generation and duplicate children are cache hits, and with
     ``prefilter`` (default) out-of-bracket children -- whose Eq. 8
     fitness is -inf regardless of their metrics -- skip simulation.  An
-    engine the loop builds itself (no ``engine``) has the reference's
-    default config, the scan backend, on ``device`` (the card unless
-    ``"cpu"`` is asked for).
+    engine the host loop builds itself (no ``engine``) has the
+    reference's default config, the scan backend, on ``device`` (the card
+    unless ``"cpu"`` is asked for).
 
     ``on_generation(gen, pop, fit, metrics)``, when given, is called
     after every scored population -- ``gen`` 0 for the seed population,
@@ -97,11 +104,23 @@ def run_ga(sweep: SweepResult, bracket: float,
     arrays; it must not mutate its arguments."""
     if loop not in ("device", "host", "fused"):
         raise ValueError(f"loop {loop!r} not in ('device', 'host', 'fused')")
-    if loop != "host":
-        raise NotImplementedError(
-            f"run_ga(loop={loop!r}) is not ported yet: ROADMAP.md queue "
-            f"item A10 (device search: ga_device's generation loop); use "
-            f"loop='host'")
+    if loop == "device":
+        from .ga_device import run_ga_device
+        return run_ga_device(sweep, bracket, cfg, seed=seed, calib=calib,
+                             verbose=verbose, engine=engine,
+                             prefilter=prefilter,
+                             on_generation=on_generation, device=device)
+    if loop == "fused":
+        if on_generation is not None:
+            raise ValueError(
+                "loop='fused' runs the whole refinement on the device -- "
+                "per-generation hooks can't fire; use loop='device' or "
+                "run_pipeline(on_stage=...)")
+        from .ga_device import run_ga_fused
+        fused = run_ga_fused(sweep, bracket, cfg, seed=seed, calib=calib,
+                             verbose=verbose, engine=engine, islands=1,
+                             device=device)
+        return None if fused is None else fused.result
     engine = (engine.check_workloads(sweep.workloads, calib)
               if engine is not None
               else EvalEngine(sweep.workloads, calib,

@@ -5,7 +5,8 @@ duplicate rows (``pareto_mask_device`` on the CPU equal to
 and ``run_bayes`` bit for bit against the reference's through one
 deterministic stub engine; the sweep and the GA end to end on real exact
 engines (genomes equal, metrics within rel 1e-9); the defaults (the scan
-engine) on the CPU; and the refusals of what is not ported (A10)."""
+engine) on the CPU; and the GA loops that ported with A10: the device
+loop on the stub engine, the fused loop refusing it."""
 import numpy as np
 import pytest
 
@@ -101,7 +102,7 @@ class StubEngine:
         return P_engine.genome_areas(
             np.asarray(genomes, np.int64).reshape(-1, GENOME_LEN))
 
-    def evaluate(self, genomes, keep=None):
+    def evaluate(self, genomes, keep=None, canonical=None):
         self.calls += 1
         g = np.asarray(genomes, np.int64).reshape(-1, GENOME_LEN)
         area = self.areas(g)
@@ -244,10 +245,22 @@ def test_sweep_and_ga_end_to_end_match_reference():
 
 @pytest.mark.parametrize("loop", ["device", "fused"])
 def test_ga_device_loops_raise_naming_a10(stub_sweeps, loop):
+    """A10 is ported: the device loop scores through any object with the
+    engine's scoring surface (the stub here; its genetics on the CPU as
+    asked), the fused loop needs a local exact ``EvalEngine`` and refuses
+    the stub before any scoring; an unknown loop is refused."""
     eng = StubEngine(WORKLOADS)
-    with pytest.raises(NotImplementedError, match="A10"):
-        P_ga.run_ga(stub_sweeps[0][0], 200.0, engine=eng, loop=loop)
-    assert eng.calls == 0                   # refused before any scoring
+    cfg = P_ga.GAConfig(population=8, generations=2, seed_top_k=4)
+    if loop == "device":
+        res = P_ga.run_ga(stub_sweeps[0][0], 200.0, cfg, engine=eng,
+                          loop=loop, device="cpu")
+        assert res is not None and res.evaluated == 24
+        assert eng.calls == 3 and len(res.history) == 3
+    else:
+        with pytest.raises(ValueError, match="local EvalEngine"):
+            P_ga.run_ga(stub_sweeps[0][0], 200.0, cfg, engine=eng,
+                        loop=loop)
+        assert eng.calls == 0               # refused before any scoring
     with pytest.raises(ValueError, match="loop"):
         P_ga.run_ga(stub_sweeps[0][0], 200.0, engine=eng, loop="gpu")
 

@@ -1,8 +1,10 @@
 """PyTorch port on the card: the hand-written CUDA kernels (``dse_eval``,
 ``flash_attention`` and its backward, ``ssm_scan`` and its backward,
 ``horner``) against their plain versions, refused launches, the batched
-engine and the plan-table executor on ``cuda`` against the CPU, and the
-python-mapper engine bit for bit the batched backend on ``cuda``.  Every test
+engine and the plan-table executor on ``cuda`` against the CPU, the
+python-mapper engine bit for bit the batched backend on ``cuda``, and the
+device search's memo, genetics step, device configs and Eq. 8 on
+``cuda`` bit for bit the CPU.  Every test
 here needs an NVIDIA GPU (and nvcc); elsewhere each one skips with its
 reason.  Torch only, no JAX, so the
 file runs on the GPU machine:
@@ -557,3 +559,59 @@ def test_cuda_refused_launch_raises(cuda):
         K.horner(torch.zeros((8,), device=cuda),
                  torch.zeros((20000,), device=cuda))
     assert K.launch_counts == before
+
+
+# ------------------------------------------------ the device search (A10)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,n", [(64, 200), (1 << 15, 600)])
+def test_cuda_device_memo_tables_equal_the_cpu(cuda, cap, n):
+    from repro_torch.core.dse import device_memo as M
+    rng = np.random.default_rng(n)
+    keys = torch.as_tensor(rng.integers(0, 40, (n, 43)).astype(np.int32))
+    keys[: n // 4] = keys[n // 4: n // 2]       # in-batch duplicates
+    vals = torch.as_tensor(rng.standard_normal((n, 3, 2)))
+    upd = torch.as_tensor(rng.random(n) < 0.8)
+    tables = []
+    for dev in ("cpu", cuda):
+        m = M.memo_insert(M.memo_init(cap, 2, dev), keys.to(dev),
+                          vals.to(dev), upd.to(dev))
+        hit, out = M.memo_lookup(m, keys.to(dev))
+        tables.append([t.cpu() for t in (*m, hit, out[hit])])
+    for a, b in zip(*tables):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_genetics_configs_and_fitness_equal_the_cpu(cuda):
+    from repro_torch.core.dse import ga_device as G
+    from repro_torch.core.dse.engine import genomes_to_configs
+    rng = np.random.default_rng(7)
+    pop = random_genomes(rng, 200).astype(np.int32)
+    fit = rng.normal(size=200)
+    fit[::7] = -np.inf
+    out = []
+    for dev in ("cpu", cuda):
+        d = G.TorchDraws(200)(1, 200, 5, 20, dev)[0]
+        child, canon = G.genetics_step(
+            torch.as_tensor(pop, device=dev),
+            torch.as_tensor(fit, device=dev), d, 20, 0.8, 0.2)
+        out.append((child.cpu(), canon.cpu()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    g = out[1][0].numpy()
+    host = genomes_to_configs(g)
+    tile, chip, area = G._configs_device(torch.as_tensor(g, device=cuda))
+    for k, v in tile.items():
+        assert np.array_equal(v.cpu().numpy(), host["tile"][k]), k
+    for k, v in chip.items():
+        assert np.array_equal(v.cpu().numpy(), host["chip"][k]), k
+    assert np.array_equal(area.cpu().numpy(), host["chip"]["chip_area"])
+    m = {"energy": rng.uniform(1, 5, (200, 3)),
+         "tops_w": rng.uniform(0.1, 2, (200, 3)),
+         "latency": rng.uniform(1e-4, 1e-2, (200, 3)),
+         "area": host["chip"]["chip_area"]}
+    e_homo = rng.uniform(2, 4, 3)
+    for b in (100.0, 200.0, 800.0):
+        assert G.fitness_device(m, e_homo, b, 0.05, cuda).tobytes() == \
+            G.fitness_device(m, e_homo, b, 0.05, "cpu").tobytes()

@@ -59,5 +59,10 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.core.compiler.mapper",
                 "repro_torch.core.compiler.schedule",
                 "repro_torch.core.compiler.pipeline",
-                "repro_torch.core.calibrate.nvdla"):
+                "repro_torch.core.calibrate.nvdla",
+                "repro_torch.core.dse.store", "repro_torch.core.dse.faults",
+                "repro_torch.core.dse.device_memo",
+                "repro_torch.core.dse.ga_device",
+                "repro_torch.core.dse.checkpoint",
+                "repro_torch.core.dse.pipeline"):
         assert mod in out["modules"], mod
