@@ -13,7 +13,7 @@ script exits non-zero without printing a result):
                 ``nvcc`` for ``sm_90a``, one process each, all started
                 together;
 3. kernel    -- dse_eval against its plain PyTorch version on the card,
-                at the main path's shapes (2,048 genomes x the op rows of
+                at the main path's shapes (1,024 genomes x the op rows of
                 all 20 workloads) and on the no-hostable-tile case: the
                 seconds and the energy bit for bit; times both with CUDA
                 events, the kernel also by torch.profiler's device time
@@ -21,10 +21,11 @@ script exits non-zero without printing a result):
                 and computes its bound;
 4. main path -- ``EvalEngine(workload_names(), EngineConfig(
                 backend="batched", mode="latency"))`` on ``cuda`` scores
-                2,048 random genomes on the 20 workloads (cut from 4,096
-                when phase 21 came, to keep the run within 900 s), then again
-                (all memo hits);
-5. prefilter -- ``roofline_bounds`` on the same 2,048 x 20 (the kernel's
+                1,024 random genomes on the 20 workloads (cut from 4,096
+                to 2,048 when phase 21 came and to 1,024 when phase 22
+                came, to keep the run within 900 s), then again (all memo
+                hits);
+5. prefilter -- ``roofline_bounds`` on the same 1,024 x 20 (the kernel's
                 caller).  Phases 4 and 5 are the DSE path: the launch
                 counters are zeroed just before phase 4 and read just
                 after phase 5, and dse_eval must have launched;
@@ -93,10 +94,14 @@ script exits non-zero without printing a result):
 17. exact    -- (runs right after phase 7, with phases 4 and 6 still in
                 memory) ``EvalEngine(backend="exact")`` on ``cuda``, the
                 search that maps and executes each op row in one pass, cold
-                on the first 1,024 of phase 4's genomes x 20 workloads and
-                on the first 256 of phase 6's in throughput mode: bit for
-                bit those phases' rows; evaluations/s beside phase 4's
-                (both backends run the same search loop,
+                on the first 1,024 of phase 4's genomes x 20 workloads,
+                served by one ``DSEService`` with a sqlite store under
+                ``build/`` to an in-process and a TCP tenant that start
+                together and ask for 640 genomes each, 256 in common (one
+                coalesced dispatch against the tenants' separate 2), and
+                on the first 256 of phase 6's in throughput mode on a local
+                engine: bit for bit those phases' rows; evaluations/s
+                beside phase 4's (both backends run the same search loop,
                 ``batched_mapper._search_one``, in micro-batches of 1,024);
 18. search   -- (right after phase 17) the search frontends on
                 PARITY_WORKLOADS through one shared exact engine on
@@ -170,6 +175,26 @@ script exits non-zero without printing a result):
                 ``results.sqlite``'s row count and versions; seconds of each
                 part and stage, evaluations, the front's size, the best
                 fitness and mean iso-area savings per bracket.
+22. service  -- (right after phase 21) the evaluation service and the
+                worker cluster on ``cuda``: (a) a second service on the
+                sqlite file of phase 17's served dispatch (whose tenants
+                got phase 4's rows byte for byte in fewer coalesced
+                dispatches than their separate total) serves the
+                in-process tenant's genomes again from above 50 % store
+                hits, byte for byte; (b) on
+                ``resnet50_int8`` and ``kan``, the served ``search``
+                (population 32, 4 generations) and the served ``pipeline``
+                (seed 0, brackets 100 and 200, 4 genomes a stratum,
+                population 16, 2 generations) byte for byte the local
+                ``run_ga`` and ``run_pipeline`` on the card; (c) a 3-worker
+                ``DSECluster`` under planted ``worker_kill`` and
+                ``shard_timeout`` faults: (b)'s GA, then ``run_pipeline(
+                cluster=, checkpoint=)`` with (b)'s study, each byte for
+                byte (b)'s local run, every planted fault fired, and the
+                checkpoint replayed by a local run; (d) ``dse_hillclimb``
+                through a ``DSEClient`` byte for byte the local engine's;
+                the phase's seconds and each part's, the service counters
+                and the cluster's membership.
 
 Then one JSON line describing the kernels (times, launches, bounds) and,
 as the last line, ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
@@ -201,10 +226,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
 DEVICE = "cuda"
-# phase 4 (and phase 3's shapes): cut from 4,096 so that the run with
-# phase 21 stays under 900 s (phase 4 took 373.9 s at 4,096 on an NVIDIA
-# H100 80GB HBM3 at 700 W; PERF.md)
-POPULATION = 2048
+# phase 4 (and phase 3's shapes): cut from 4,096 to 2,048 so that the run
+# with phase 21 stays under 900 s (phase 4 took 373.9 s at 4,096 on an
+# NVIDIA H100 80GB HBM3 at 700 W; PERF.md), then to 1,024 to make room for
+# phase 22 (215.9-217.1 s at 2,048)
+POPULATION = 1024
 THROUGHPUT_POPULATION = 1024
 PARITY_POPULATION = 64
 THROUGHPUT_WORKLOADS = ["kan", "resnet50_int8", "hyena_1_3b",
@@ -237,6 +263,27 @@ PIPELINE_WORKLOADS = ["resnet50_int8", "kan"]
 PIPELINE_SEEDS, PIPELINE_SAMPLES, PIPELINE_BRACKET = (0, 1), 8, 200.0
 PIPELINE_GA = dict(population=200, generations=4, early_stop=4)
 RESUME_BRACKETS = (100.0, 200.0)
+# phase 17 serves its exact genomes to two tenants of one DSEService, the
+# halves of EXACT_POPULATION overlapping by SERVICE_SHARED genomes, within
+# a batching window of SERVICE_WINDOW_MS (a cold exact dispatch on the 20
+# workloads takes 75-109 s on the card whatever its size, so phase 22 (a)
+# measures the coalescing on phase 17's dispatch, not on one of its own);
+# phase 22: (a) a second service on that dispatch's sqlite file; (b)-(d)
+# on PIPELINE_WORKLOADS: the served search, the served pipeline (seed 0,
+# two brackets), a 3-worker cluster under planted faults and the hillclimb
+SERVICE_SHARED, SERVICE_WINDOW_MS = 256, 1000.0
+SERVICE_SEARCH = dict(population=32, generations=4, seed_top_k=16,
+                      early_stop=10_000)
+SERVICE_PIPELINE = dict(seeds=(0,), brackets=(100.0, 200.0),
+                        samples_per_stratum=4,
+                        cfg=dict(population=16, generations=2, seed_top_k=8,
+                                 early_stop=10_000))
+CLUSTER_WORKERS = 3
+# shard indices at which the planted faults fire: the GA's (a shard per
+# live worker per generation) and the pipeline's (its one sweep call)
+CLUSTER_GA_FAULTS = {"worker_kill": (1,), "shard_timeout": (3,)}
+CLUSTER_PIPELINE_FAULTS = {"worker_kill": (1,), "shard_timeout": (0,)}
+SERVICE_HILLCLIMB = dict(budget_mm2=200.0, steps=2, neighbors=16, seed=0)
 
 # the LM serving path: Jamba-v0.1 at full width, one period of 8 layers
 LM_ARCH = "jamba-v0.1-52b"
@@ -510,9 +557,9 @@ def dse_launches(np, dev):
 
 
 def _dse_phases(torch, np, dev, args, record):
-    """Phases 3-7 and 17-21, the DSE evaluation path, the search on top of
-    it, the host oracle beside it, the scan and link tiers and the §4
-    pipeline; returns the kernel line of
+    """Phases 3-7 and 17-22, the DSE evaluation path, the search on top of
+    it, the host oracle beside it, the scan and link tiers, the §4
+    pipeline, the service and the cluster; returns the kernel line of
     ``dse_eval``.  Its tensors are freed
     when it returns."""
     from repro_torch.core.arch import hetero_bls
@@ -733,13 +780,14 @@ def _dse_phases(torch, np, dev, args, record):
 
     # ---- 17-20. the exact search, the search frontends, the oracle, the
     # scan backend and the link tier --------------------------------------
-    record["exact"] = _exact_phase(torch, np, dev, args, genomes, res,
-                                   record["main_path"], g1, rt)
+    record["exact"], served = _exact_phase(torch, np, dev, args, genomes,
+                                           res, record["main_path"], g1, rt)
     record["search"] = _search_phase(torch, np, dev)
     record["oracle"] = _oracle_phase(torch, np, dev, g2, card_rows)
     record["scan_link"] = _scan_link_phase(torch, np, dev, genomes, res,
                                            g1, rt, g2, card_rows, record)
     record["pipeline"] = _pipeline_phase(torch, np, dev)
+    record["service"] = _service_phase(torch, np, dev, served)
 
     return {
         "name": "dse_eval", "route": "cuda",
@@ -765,30 +813,112 @@ def _same_rows(np, got, want, what):
               f"{float(np.nanmax(np.abs(got[k] - want[k]))):.3e})")
 
 
+def _served_exact(torch, np, dev, names, g, store_dir):
+    """Score ``g`` on ``names`` cold through one ``DSEService`` over an
+    exact engine on ``dev`` with a sqlite store in ``store_dir``: an
+    in-process and a TCP tenant start together through a barrier and ask
+    for the two halves of ``g``, overlapping by SERVICE_SHARED genomes.
+    Holds the two tenants' rows of their shared genomes byte for byte,
+    and the coalesced dispatches below the tenants' separate count.
+    Returns the rows of ``g`` in order, the tenants' seconds, the service
+    counters and the tenants' genomes."""
+    import threading
+    from repro_torch.core.dse.api import EngineConfig
+    from repro_torch.core.dse.engine import EvalEngine
+    from repro_torch.core.dse.store import (MemoryLRUStore, SqliteStore,
+                                            TieredStore)
+    from repro_torch.serve.dse_service import DSEClient, DSEService
+
+    wait_s = 600.0
+    half = (len(g) + SERVICE_SHARED) // 2
+    overlap = 2 * half - len(g)
+    tenant_g = {"in-process": g[:half], "tcp": g[len(g) - half:]}
+    store_path = os.path.join(store_dir, "results.sqlite")
+    store = TieredStore(MemoryLRUStore(), SqliteStore(store_path))
+    svc = DSEService(EvalEngine(names, config=EngineConfig(
+        backend="exact", mode="latency", store=store), device=dev),
+        max_batch=len(g), max_wait_ms=SERVICE_WINDOW_MS).start()
+    served, errs = {}, []
+    try:
+        check(svc.engine.device.type == torch.device(dev).type,
+              f"exact engine on {svc.engine.device}")
+        address = svc.listen()
+        barrier = threading.Barrier(len(tenant_g))
+
+        def tenant(name):
+            try:
+                cl = (DSEClient(service=svc, timeout=wait_s)
+                      if name == "in-process"
+                      else DSEClient(address=address, timeout=wait_s))
+                barrier.wait(wait_s)
+                served[name] = cl.evaluate(tenant_g[name])
+                cl.close()
+            except Exception as exc:    # noqa: BLE001 - raised below
+                errs.append(exc)
+
+        threads = [threading.Thread(target=tenant, args=(t,))
+                   for t in tenant_g]
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(wait_s)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a tenant hung")
+        if errs:
+            raise errs[0]
+        st = svc.stats
+        # each tenant alone: one cold dispatch of each micro-batch
+        separate = sum(-(-len(x) // svc.engine.batch)
+                       for x in tenant_g.values())
+        check(st.engine_dispatches < separate,
+              f"{st.engine_dispatches} coalesced dispatches, not fewer "
+              f"than the tenants' separate {separate}")
+        stats = st.snapshot(svc.max_batch)
+    finally:
+        svc.stop()
+        store.close()
+    a, b = served["in-process"], served["tcp"]
+    keys = _ROWS + ("area",)
+    for k in keys:
+        check(a[k][len(g) - half:].tobytes() == b[k][:overlap].tobytes(),
+              f"the tenants' rows of their shared genomes differ: {k}")
+    return {"rows": {k: np.concatenate([a[k], b[k][overlap:]])
+                     for k in keys},
+            "wall_s": wall, "stats": stats, "separate": separate,
+            "batch": svc.engine.batch,
+            "tenants": tenant_g, "overlap": overlap, "store": store_path,
+            "dir": store_dir}
+
+
 def _exact_phase(torch, np, dev, args, genomes, res4, main_path, g1, rt):
     """Phase 17: ``EvalEngine(backend="exact")`` (the search: one pass per
     workload mapping and executing each row) cold on the first
-    EXACT_POPULATION of phase 4's genomes on all 20 workloads, and on the
-    first EXACT_THROUGHPUT_POPULATION of phase 6's in throughput mode;
-    both bit for bit equal to those phases' rows."""
+    EXACT_POPULATION of phase 4's genomes on all 20 workloads, served to
+    two overlapping tenants by one ``DSEService`` (``_served_exact``),
+    and on the first EXACT_THROUGHPUT_POPULATION of phase 6's in
+    throughput mode on a local engine; both bit for bit equal to those
+    phases' rows.  Returns its numbers and, for phase 22 (a), what
+    ``_served_exact`` returned (its sqlite store stays in ``build/``
+    until phase 22 removes it)."""
+    import tempfile
     from repro_torch.core.dse.api import EngineConfig
     from repro_torch.core.dse.engine import EvalEngine
     from repro_torch.core.workloads import workload_names
 
     names = workload_names()
     g = genomes[:EXACT_POPULATION]
-    eng = EvalEngine(names, config=EngineConfig(backend="exact",
-                                                mode="latency"))
-    check(eng.device.type == DEVICE and eng.batch == len(g),
-          f"exact engine on {eng.device}, batch {eng.batch}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rx = eng.evaluate(g)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    _same_rows(np, rx, {k: res4[k][:len(g)] for k in _ROWS}, "exact vs "
-               "phase 4")
-    check(rx["meta"]["dispatches"] == 1, f"meta {rx['meta']}")
+    served = _served_exact(torch, np, dev, names, g, tempfile.mkdtemp(
+        prefix="service_", dir=os.path.join(ROOT, "build")))
+    rx, wall, st = served["rows"], served["wall_s"], served["stats"]
+    _same_rows(np, rx, {k: res4[k][:len(g)] for k in _ROWS}, "exact "
+               "(served) vs phase 4")
+    check(served["batch"] >= len(g) and st["engine_dispatches"] == 1,
+          f"micro-batch {served['batch']}, service {st}")
     evals = len(g) * len(names) / wall
 
     gt = g1[:EXACT_THROUGHPUT_POPULATION]
@@ -806,18 +936,27 @@ def _exact_phase(torch, np, dev, args, genomes, res4, main_path, g1, rt):
            "phase4_evals_per_s": main_path["evals_per_s"],
            "throughput_wall_s": wall_t,
            "throughput_evals_per_s": len(gt) * len(THROUGHPUT_WORKLOADS)
-           / wall_t, "meta": rx["meta"]}
-    _phase(17, "exact", f"EvalEngine exact/latency on {eng.device}: "
-           f"{len(g)} genomes x {len(names)} workloads in {wall:.3f} s = "
-           f"{evals:.1f} evaluations/s (phase 4, batched: "
+           / wall_t, "service": st,
+           "tenant_genomes": [len(x) for x in served["tenants"].values()],
+           "shared_genomes": served["overlap"],
+           "separate_dispatches": served["separate"]}
+    _phase(17, "exact", f"EvalEngine exact/latency on {dev}, served by a "
+           f"DSEService with a sqlite store to an in-process and a TCP "
+           f"tenant of {out['tenant_genomes']} genomes ({served['overlap']}"
+           f" shared): {len(g)} genomes x {len(names)} workloads in "
+           f"{wall:.3f} s = {evals:.1f} evaluations/s (phase 4, batched: "
            f"{main_path['evals_per_s']:.1f}; both in micro-batches of "
-           f"{eng.batch}), bit for bit phase 4's rows; throughput mode "
-           f"{len(gt)} x {len(THROUGHPUT_WORKLOADS)} in {wall_t:.3f} s "
-           f"= {out['throughput_evals_per_s']:.1f} evaluations/s, bit for "
-           f"bit phase 6's rows")
+           f"{served['batch']}), bit for bit phase 4's rows; "
+           f"{st['engine_dispatches']} coalesced dispatch against "
+           f"{served['separate']} separate, {st['batches']} batches "
+           f"({st['coalesced_batches']} coalesced), {st['inflight_merged']}"
+           f" in-flight merges, mean queue {st['mean_queue_ms']:.3f} ms; "
+           f"throughput mode {len(gt)} x {len(THROUGHPUT_WORKLOADS)} in "
+           f"{wall_t:.3f} s = {out['throughput_evals_per_s']:.1f} "
+           f"evaluations/s, bit for bit phase 6's rows")
     if args.profile:
         out["profile"] = _profile_exact_micro_batch(torch, genomes, dev)
-    return out
+    return out, served
 
 
 def _profile_exact_micro_batch(torch, genomes, dev):
@@ -1590,6 +1729,243 @@ def _pipeline_phase(torch, np, dev):
            f"first refinement, resumed in {secs['c_resume']:.3f} s == "
            f"uninterrupted ({secs['c_clean']:.3f} s) bit for bit; "
            f"results.sqlite {rows} rows, versions {versions}")
+    return out
+
+
+def _service_phase(torch, np, dev, served=None):
+    """Phase 22: the evaluation service and the worker cluster on ``dev``
+    (see the module docstring).  Every comparison is byte for byte:
+    served and clustered rows are content-addressed, so they equal a
+    local engine's on the same device.  ``served`` is phase 17's served
+    dispatch (``_served_exact``: its tenants' rows, already held against
+    phase 4's, and its sqlite store); without it (a script that runs this
+    phase alone) the phase makes that dispatch itself, on phase 17's
+    genomes, and holds its rows against a local exact engine's."""
+    import tempfile
+    from repro_torch.core.dse.api import EngineConfig
+    from repro_torch.core.dse.encoding import random_genomes
+    from repro_torch.core.dse.engine import EvalEngine
+    from repro_torch.core.dse.faults import FaultInjector
+    from repro_torch.core.dse.ga import GAConfig, run_ga
+    from repro_torch.core.dse.pipeline import run_pipeline
+    from repro_torch.core.dse.store import (MemoryLRUStore, SqliteStore,
+                                            TieredStore)
+    from repro_torch.core.dse.sweep import run_sweep
+    from repro_torch.core.workloads import workload_names
+    from repro_torch.launch.hillclimb import dse_hillclimb
+    from repro_torch.serve.cluster import DSECluster
+    from repro_torch.serve.dse_service import (DSEClient, DSEService,
+                                               _SeedPool)
+
+    t_phase = time.perf_counter()
+    secs = {}
+    wait_s = 600.0
+
+    def timed(key, fn):
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    def exact(workloads, store=None):
+        return EvalEngine(workloads, config=EngineConfig(backend="exact",
+                                                         store=store),
+                          device=dev)
+
+    def same_rows(got, want, what, keys=("latency", "energy", "tops_w",
+                                         "area")):
+        for k in keys:
+            check(np.asarray(got[k]).tobytes()
+                  == np.asarray(want[k]).tobytes(), f"{what}: {k} differs")
+
+    def same_ga(got, want, what):
+        check(got is not None and want is not None, f"{what}: no result")
+        check(got.best_fitness == want.best_fitness
+              and got.best_genome.tobytes() == want.best_genome.tobytes()
+              and got.history == want.history
+              and got.evaluated == want.evaluated, f"{what}: GA differs")
+        same_rows(got.best_metrics, want.best_metrics, what, _ROWS)
+
+    services = []
+    tmp = (served["dir"] if served is not None else tempfile.mkdtemp(
+        prefix="service_", dir=os.path.join(ROOT, "build")))
+    try:
+        # ---- (a) a second service on the served dispatch's sqlite file ----
+        names = workload_names()
+
+        def service(workloads, store_path=None, **kw):
+            store = (TieredStore(MemoryLRUStore(), SqliteStore(store_path))
+                     if store_path else None)
+            svc = DSEService(exact(workloads, store), **kw).start()
+            services.append(svc)
+            return svc
+
+        if served is None:
+            g = random_genomes(np.random.default_rng(0),
+                               POPULATION)[:EXACT_POPULATION]
+            served = timed("a_tenants", lambda: _served_exact(
+                torch, np, dev, names, g, tmp))
+            local = timed("a_local", lambda: exact(names).evaluate(g))
+            same_rows(served["rows"], local, "(a) served tenants")
+        g_in = served["tenants"]["in-process"]
+        warm = service(names, served["store"])
+        again = timed("a_warm", lambda: DSEClient(service=warm).evaluate(
+            g_in))
+        same_rows(again, {k: v[:len(g_in)] for k, v in
+                          served["rows"].items()}, "(a) warm service")
+        hit_rate = warm.stats.store_hits / max(warm.stats.request_genomes, 1)
+        check(hit_rate > 0.5, f"(a) warm store hit rate {hit_rate:.3f}")
+        warm.stop()
+        warm.engine.store.close()
+
+        # ---- (b) served search and pipeline ---------------------------------
+        wl = PIPELINE_WORKLOADS
+        bracket = PIPELINE_BRACKET
+        sweep = timed("b_sweep", lambda: run_sweep(
+            wl, samples_per_stratum=SERVICE_PIPELINE["samples_per_stratum"],
+            seed=0, brackets=SERVICE_PIPELINE["brackets"], engine=exact(wl)))
+        cfg = GAConfig(**SERVICE_SEARCH)
+        fit = sweep.fitness(cfg.alpha)
+        in_b = np.nonzero((sweep.bracket == bracket) & np.isfinite(fit))[0]
+        seeds = sweep.genomes[in_b[np.argsort(-fit[in_b])][:cfg.seed_top_k]]
+        e_homo = sweep.homo_baseline()[bracket]
+        svc_b = service(wl)
+        events = timed("b_search", lambda: list(DSEClient(
+            service=svc_b).search(seeds, bracket, e_homo,
+                                  cfg=SERVICE_SEARCH, seed=0)))
+        check(events[-1]["event"] == "done", f"(b) search: {events[-1]}")
+        res = events[-1]["result"]
+        ga_local = timed("b_search_local", lambda: run_ga(
+            _SeedPool(wl, seeds, bracket, e_homo), bracket, cfg, seed=0,
+            engine=exact(wl)))
+        check(res["best_fitness"] == ga_local.best_fitness
+              and res["best_genome"] == ga_local.best_genome.tolist()
+              and res["history"] == ga_local.history
+              and res["evaluated"] == ga_local.evaluated
+              and all(res["best_metrics"][k]
+                      == np.asarray(ga_local.best_metrics[k]).tolist()
+                      for k in _ROWS), "(b) served search differs")
+        pipe_cfg = GAConfig(**SERVICE_PIPELINE["cfg"])
+        stages = timed("b_pipeline", lambda: list(DSEClient(
+            address=svc_b.listen(), timeout=wait_s).pipeline(
+                **SERVICE_PIPELINE)))
+        check(stages[-1]["event"] == "done", f"(b) pipeline: {stages[-1]}")
+        sp = stages[-1]["result"]
+        pipe_local = timed("b_pipeline_local", lambda: run_pipeline(
+            wl, engine=exact(wl),
+            **{**SERVICE_PIPELINE, "cfg": pipe_cfg}))
+        check(sp["front"]["points"] == pipe_local.front_points.tolist()
+              and sp["front"]["genomes"] == pipe_local.front_genomes.tolist()
+              and sp["evaluated"] == pipe_local.evaluated,
+              "(b) served pipeline's front differs")
+        for b, r in pipe_local.results[0].items():
+            got = sp["results"]["0"][str(b)]
+            check(got["best_fitness"] == r.best_fitness
+                  and got["best_genome"] == r.best_genome.tolist(),
+                  f"(b) served pipeline at {b} differs")
+
+        # ---- (d) the hillclimb through a client ------------------------------
+        hill = timed("d_client", lambda: dse_hillclimb(
+            wl, engine=DSEClient(service=svc_b), **SERVICE_HILLCLIMB))
+        hill_local = timed("d_local", lambda: dse_hillclimb(
+            wl, engine=exact(wl), **SERVICE_HILLCLIMB))
+        for key in ("best_genome", "mean_energy_pj", "area_mm2",
+                    "per_workload_latency_s"):
+            check(hill[key] == hill_local[key], f"(d) hillclimb {key}")
+        b_stats = svc_b.stats.snapshot(svc_b.max_batch)
+        svc_b.stop()
+
+        # ---- (c) the cluster under faults ------------------------------------
+        def cluster(faults, tag):
+            svcs = [service(wl, worker_id=f"{tag}-w{i}")
+                    for i in range(CLUSTER_WORKERS)]
+            inj = FaultInjector(seed=0, at=faults)
+            return DSECluster(svcs, fault_injector=inj, backoff_s=0.01), inj
+
+        # the GA of (b) through the cluster: (b)'s local run is the
+        # unfaulted single-engine run
+        cl, inj = cluster(CLUSTER_GA_FAULTS, "ga")
+        ga_cl = timed("c_ga", lambda: run_ga(
+            _SeedPool(wl, seeds, bracket, e_homo), bracket, cfg, seed=0,
+            engine=cl, device=dev))
+        same_ga(ga_cl, ga_local, "(c) clustered GA")
+        fired = {"ga": inj.fired()}
+        membership = {"ga": cl.membership()}
+        cl_stats = {"ga": cl.cluster_stats.snapshot()}
+        cl.close()
+        cl, inj = cluster(CLUSTER_PIPELINE_FAULTS, "pipe")
+        ck = os.path.join(tmp, "ck")
+        pipe_cl = timed("c_pipeline", lambda: run_pipeline(
+            wl, engine=exact(wl), cluster=cl, checkpoint=ck,
+            **{**SERVICE_PIPELINE, "cfg": pipe_cfg}))
+        fired["pipeline"] = inj.fired()
+        membership["pipeline"] = cl.membership()
+        cl_stats["pipeline"] = cl.cluster_stats.snapshot()
+        cl.close()
+        for part, faults in (("ga", CLUSTER_GA_FAULTS),
+                             ("pipeline", CLUSTER_PIPELINE_FAULTS)):
+            for site, at in faults.items():
+                check(fired[part][site] == len(at),
+                      f"(c) {part}: {site} fired {fired[part][site]} of "
+                      f"{len(at)} times")
+        _same_study(np, pipe_cl, pipe_local, "(c) clustered pipeline")
+        replay_eng = exact(wl)
+        replay = timed("c_replay", lambda: run_pipeline(
+            wl, engine=replay_eng, checkpoint=ck,
+            **{**SERVICE_PIPELINE, "cfg": pipe_cfg}))
+        check(replay_eng.stats.dispatches == 0,
+              "(c) the local replay of the clustered checkpoint dispatched")
+        _same_study(np, replay, pipe_local, "(c) local replay")
+    finally:
+        for svc in services:
+            svc.stop(drain=False)
+            svc.engine.store.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs["phase"] = time.perf_counter() - t_phase
+
+    st = served["stats"]
+    out = {"secs": secs, "a_service": st,
+           "a_separate_dispatches": served["separate"],
+           "a_warm_hit_rate": hit_rate,
+           "b_service": b_stats, "c_fired": fired, "c_membership": membership,
+           "c_cluster_stats": cl_stats,
+           "b_search_best_fitness": res["best_fitness"],
+           "b_pipeline_front": len(sp["front"]["points"]),
+           "d_mean_energy_pj": hill["mean_energy_pj"]}
+    _phase(22, "service", f"{secs['phase']:.3f} s on {dev}. (a) "
+           + (f"the served dispatch ({len(names)} workloads, tenants of "
+              f"{[len(x) for x in served['tenants'].values()]} genomes) "
+              f"{secs['a_tenants']:.3f} s, byte for byte a local exact "
+              f"engine ({secs['a_local']:.3f} s); "
+              if "a_tenants" in secs else "phase 17's served dispatch: ")
+           + f"{st['engine_dispatches']} coalesced dispatches vs "
+           f"{served['separate']} separate, {st['inflight_merged']} "
+           f"in-flight merges; a second service on its sqlite file: hit "
+           f"rate {hit_rate:.3f}, byte for byte ({secs['a_warm']:.3f} s). "
+           f"(b) on {wl}: sweep {secs['b_sweep']:.3f} s; served search "
+           f"{SERVICE_SEARCH['population']} x {SERVICE_SEARCH['generations']}"
+           f" {secs['b_search']:.3f} s == local run_ga "
+           f"{secs['b_search_local']:.3f} s (best {res['best_fitness']:+.6f})"
+           f"; served pipeline {secs['b_pipeline']:.3f} s == local "
+           f"{secs['b_pipeline_local']:.3f} s (front "
+           f"{len(sp['front']['points'])}). (c) {CLUSTER_WORKERS}-worker "
+           f"cluster: (b)'s GA {secs['c_ga']:.3f} s == (b)'s local run "
+           f"under {CLUSTER_GA_FAULTS}; "
+           f"run_pipeline(cluster=, checkpoint=) {secs['c_pipeline']:.3f} s "
+           f"== unfaulted under {CLUSTER_PIPELINE_FAULTS}; every planted "
+           f"fault fired; local replay of its checkpoint "
+           f"{secs['c_replay']:.3f} s, no dispatch; membership "
+           + json.dumps({p: [m["status"] for m in v]
+                         for p, v in membership.items()})
+           + f", retried shards {cl_stats['ga']['retried_shards']} + "
+           f"{cl_stats['pipeline']['retried_shards']}. (d) dse_hillclimb "
+           f"through a DSEClient {secs['d_client']:.3f} s == local "
+           f"{secs['d_local']:.3f} s (mean energy "
+           f"{hill['mean_energy_pj']:.6e} pJ)")
     return out
 
 

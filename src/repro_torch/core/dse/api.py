@@ -5,19 +5,28 @@ reference's fields, defaults and validation.  The device is not a config
 field: ``EvalEngine`` takes it as a constructor argument.  It does enter
 the port's ``context_digest``, together with the framework name, so a
 store never serves a row computed by the reference (or on another
-device) to the port.
+device) to the port, and a service client or a cluster refuses a worker
+on another device type.
+
+``Evaluator`` is the protocol every scoring surface satisfies -- the
+local ``EvalEngine``, the in-process and TCP ``DSEClient`` and the
+``DSECluster`` (``repro_torch.serve``) -- pinned by the conformance suite
+in tests/test_torch_api.py.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Optional, Sequence
+from typing import (Any, Dict, Optional, Protocol, Sequence,
+                    runtime_checkable)
+
+import numpy as np
 
 from ..calibrate.asap7 import CalibrationTable
 from ..simulator.costs import COST_MODEL_VERSION, FIDELITIES
 from ..simulator.orchestrator import SCHEDULE_MODES
 
-__all__ = ["EngineConfig", "context_digest", "BACKENDS", "EXACT_MAPPERS",
+__all__ = ["EngineConfig", "Evaluator", "context_digest", "BACKENDS", "EXACT_MAPPERS",
            "NONFINITE_POLICIES", "META_VERSION", "FRAMEWORK"]
 
 BACKENDS = ("scan", "exact", "batched", "oracle")
@@ -83,3 +92,45 @@ class EngineConfig:
                              "it cannot run exact_mapper='python'")
         if self.batch < 1:
             raise ValueError(f"batch must be >= 1, got {self.batch}")
+
+    def context_digest(self, workloads: Sequence[str],
+                       calib: CalibrationTable, device) -> bytes:
+        """The content-context digest this config induces for a given
+        (workloads, calib, device) triple -- see module-level
+        ``context_digest``.  Unlike the reference's method it takes the
+        device (a ``torch.device`` or its type name), because the port's
+        digest includes the device type."""
+        return context_digest(workloads, calib, self.aggressive_int4,
+                              self.enable_fusion, self.backend,
+                              self.fidelity, getattr(device, "type", device))
+
+
+@runtime_checkable
+class Evaluator(Protocol):
+    """What a scoring surface must provide for the search frontends
+    (sweep / GA / Bayes / hillclimb) and the serving layer to drive it.
+    Satisfied by ``EvalEngine``, ``DSEClient`` (both bindings) and
+    ``DSECluster``.
+
+    Metric contract: ``evaluate``/``rescore``/``score_batch`` return a
+    dict of float64 numpy ``latency`` (N, W), ``energy`` (N, W),
+    ``tops_w`` (N, W), ``area`` (N,); ``evaluate`` and ``rescore``
+    additionally carry a ``"meta"`` dict stamped with ``meta_version``
+    (see ``META_VERSION``).
+    """
+
+    workloads: Sequence[str]
+    stats: Any
+
+    def evaluate(self, genomes: np.ndarray, keep=None,
+                 mode: Optional[str] = None,
+                 canonical: Optional[np.ndarray] = None
+                 ) -> Dict[str, Any]: ...
+
+    def rescore(self, genomes: np.ndarray, oracle: bool = False,
+                mode: Optional[str] = None) -> Dict[str, Any]: ...
+
+    def score_batch(self, genomes: np.ndarray,
+                    mode: Optional[str] = None) -> Dict[str, Any]: ...
+
+    def context_key(self) -> bytes: ...

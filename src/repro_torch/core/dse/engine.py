@@ -25,7 +25,10 @@ the genome memo behind the ``ResultStore`` interface (keys are ``mode:``
 ``cuda`` and raises without a card unless ``device="cpu"`` is passed.
 Every backend runs in both modes and both fidelity tiers; ``shard=True``
 raises ``NotImplementedError`` naming its ROADMAP.md queue item.  The
-reference's deprecated per-knob constructor arguments are not ported.
+reference's deprecated per-knob constructor arguments (``batch=``,
+``backend=``, ``memo_limit=`` and the rest) are keyword-only after
+``device`` and behave as the reference's: one ``DeprecationWarning`` per
+call, then the same ``EngineConfig``.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import copy
 import dataclasses
 import functools
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,7 +58,7 @@ from ..simulator.orchestrator import (CACHE_FRAC, SCHEDULE_MODES,
                                       check_fidelity, noc_hops)
 from ..simulator.orchestrator import simulate as oracle_simulate
 from ..workloads import build
-from .api import BACKENDS, META_VERSION, EngineConfig, context_digest
+from .api import BACKENDS, META_VERSION, EngineConfig
 from .batch_eval import batch_evaluate, prepare_configs, prepare_workload
 from .encoding import (FIELDS_PER_TILE, GENOME_LEN, IDX_ASPECT, IDX_DRAM,
                        IDX_DRAM_CH, IDX_ICONN, IDX_NOC_BPC, IDX_TOPO,
@@ -389,6 +393,10 @@ class EngineStats:
         return pairs / max(self.eval_seconds, 1e-12)
 
 
+# sentinel distinguishing "caller passed this legacy kwarg" (deprecation
+# shim fires) from "default" on EvalEngine.__init__
+_UNSET = object()
+
 
 class EvalEngine:
     """Unified cached scorer: genomes x fixed workload list -> metrics.
@@ -403,8 +411,46 @@ class EvalEngine:
     def __init__(self, workloads: Sequence[str],
                  calib: CalibrationTable = DEFAULT_CALIB,
                  config: Optional[EngineConfig] = None,
-                 device=None):
-        config = EngineConfig() if config is None else config
+                 device=None, *,
+                 batch=_UNSET, memoize=_UNSET, vectorized=_UNSET,
+                 shard=_UNSET, aggressive_int4=_UNSET,
+                 enable_fusion=_UNSET, memo_max=_UNSET, backend=_UNSET,
+                 exact_mapper=_UNSET, mode=_UNSET, memo_limit=_UNSET,
+                 store=_UNSET, nonfinite=_UNSET, fidelity=_UNSET):
+        # ``config=EngineConfig(...)`` is the canonical construction; the
+        # per-knob kwargs are the reference's pre-config surface, kept
+        # working behind a deprecation shim (they warn, then assemble the
+        # same config).
+        if memo_limit is not _UNSET:
+            warnings.warn(
+                "EvalEngine(memo_limit=...) is deprecated; pass "
+                "config=EngineConfig(memo_max=...) (memo_limit is the "
+                "old alias of memo_max)", DeprecationWarning, stacklevel=2)
+            if memo_max is not _UNSET:
+                raise ValueError("pass memo_max or its legacy alias "
+                                 "memo_limit, not both")
+            memo_max = memo_limit
+        legacy = {k: v for k, v in [
+            ("batch", batch), ("memoize", memoize),
+            ("vectorized", vectorized), ("shard", shard),
+            ("aggressive_int4", aggressive_int4),
+            ("enable_fusion", enable_fusion), ("memo_max", memo_max),
+            ("backend", backend), ("exact_mapper", exact_mapper),
+            ("mode", mode), ("store", store), ("nonfinite", nonfinite),
+            ("fidelity", fidelity)] if v is not _UNSET}
+        if config is not None:
+            if legacy:
+                raise ValueError(
+                    f"pass config=EngineConfig(...) or the legacy per-knob "
+                    f"kwargs, not both (got both config= and "
+                    f"{sorted(legacy)})")
+        else:
+            if legacy:
+                warnings.warn(
+                    f"EvalEngine per-knob kwargs ({sorted(legacy)}) are "
+                    f"deprecated; pass config=EngineConfig(...) instead",
+                    DeprecationWarning, stacklevel=2)
+            config = EngineConfig(**legacy)
         check_fidelity(config.fidelity)
         if config.shard:
             raise NotImplementedError(
@@ -452,10 +498,9 @@ class EvalEngine:
 
     def context_key(self) -> bytes:
         """``api.context_digest`` over this engine's config, framework and
-        device type."""
-        return context_digest(self.workloads, self.calib,
-                              self.aggressive_int4, self.enable_fusion,
-                              self.backend, self.fidelity, self.device.type)
+        device type (``EngineConfig.context_digest``)."""
+        return self.config.context_digest(self.workloads, self.calib,
+                                          self.device)
 
     # ------------------------------------------------------------- plumbing
     def check_workloads(self, workloads: Sequence[str],

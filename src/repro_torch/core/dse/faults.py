@@ -2,10 +2,9 @@
 
 Port of ``repro/core/dse/faults.py``.  The schedule is the reference's
 bit for bit (a fire decision depends only on ``(seed, site, n)``).  The
-service and cluster sites (``tcp_drop``, ``worker_kill``,
-``heartbeat_drop``, ``shard_timeout``) keep their names in
-``FAULT_SITES``; nothing in the port fires them until the evaluation
-service and the cluster are ported (ROADMAP.md queue item A11).
+service fires ``tcp_drop`` (``serve/dse_service.py``) and the cluster's
+coordinator ``worker_kill``, ``heartbeat_drop`` and ``shard_timeout``
+(``serve/cluster.py``).
 
 Chaos testing a bitwise-deterministic system needs bitwise-deterministic
 faults: a failure schedule that depends on wall clock or a shared global

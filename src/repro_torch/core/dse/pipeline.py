@@ -210,16 +210,24 @@ def run_pipeline(workloads: Sequence[str], seeds: Sequence[int] = (0, 1, 2),
     is durable *before* its event fires, so an ``on_stage`` callback
     that raises (or a kill while it runs) never loses the stage.
 
-    ``cluster=`` (the reference's worker cluster for the sweeps) is not
-    ported: it raises ``NotImplementedError``.  ``device`` places the
-    engine a call builds (the card unless ``"cpu"`` is asked for);
-    ``draws`` builds each refinement's random-draw source from ``seed +
-    int(bracket)`` (``ga_device.TorchDraws`` by default).
+    ``cluster=<serve.cluster.DSECluster>`` scores the Stage-1 sweeps
+    through a worker cluster instead of the local engine: shard losses
+    fail over to surviving workers inside the cluster, and the sweep's
+    metric rows are then replayed into the local engine's store
+    (``_import_sweep`` -- float64 round-trips bit for bit over the wire),
+    so the fused refinements proceed from exactly the warm store an
+    all-local run would have.  The study result is bit for bit the same
+    with or without a cluster, so ``checkpoint=`` composes freely: a
+    checkpoint written by a clustered run resumes on a local one (the
+    run digest is identical).  The cluster must serve the same engine
+    context as the local engine, device type included (its workers and
+    the local engine both on ``cuda``, or both on ``cpu``).
+
+    ``device`` places the engine a call builds (the card unless
+    ``"cpu"`` is asked for); ``draws`` builds each refinement's
+    random-draw source from ``seed + int(bracket)``
+    (``ga_device.TorchDraws`` by default).
     """
-    if cluster is not None:
-        raise NotImplementedError(
-            "cluster= has no counterpart in the port yet: ROADMAP.md queue "
-            "item A11 (the evaluation service and the cluster)")
     cfg = cfg or GAConfig()
     if engine is None:
         device = resolve_device(device)   # no card: raise before any I/O
@@ -237,6 +245,15 @@ def run_pipeline(workloads: Sequence[str], seeds: Sequence[int] = (0, 1, 2),
     if engine.backend != "exact":
         raise ValueError("run_pipeline requires backend='exact'; got "
                          f"{engine.backend!r}")
+    if cluster is not None:
+        cluster.check_workloads(workloads, calib)
+        if cluster.context_key() != engine.context_key():
+            raise ValueError(
+                "cluster workers serve a different engine context than the "
+                f"local pipeline engine (on {engine.device.type}) -- sweep "
+                "rows would not replay bit for bit into its store; the "
+                "workers' engines and the local one must share workloads, "
+                "calibration, compile flags, fidelity and device type")
     if ck is not None:
         ck.open(run_digest(engine, seeds, brackets, samples_per_stratum,
                            cfg, islands, migrate_every, migrate_k))
@@ -267,7 +284,12 @@ def run_pipeline(workloads: Sequence[str], seeds: Sequence[int] = (0, 1, 2),
             t0 = time.perf_counter()
             swp = run_sweep(workloads, samples_per_stratum, seed=s,
                             calib=calib, brackets=brackets, verbose=verbose,
-                            engine=engine)
+                            engine=engine if cluster is None else cluster)
+            if cluster is not None:
+                # the workers computed the rows; replay them into the
+                # local engine's store so the fused refinements hit the
+                # same warm store an all-local sweep would have left
+                _import_sweep(engine, swp)
             dt = time.perf_counter() - t0
             secs["sweep"] += dt
             sweeps[s] = swp

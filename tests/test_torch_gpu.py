@@ -2,9 +2,10 @@
 ``flash_attention`` and its backward, ``ssm_scan`` and its backward,
 ``horner``) against their plain versions, refused launches, the batched
 engine and the plan-table executor on ``cuda`` against the CPU, the
-python-mapper engine bit for bit the batched backend on ``cuda``, and the
+python-mapper engine bit for bit the batched backend on ``cuda``, the
 device search's memo, genetics step, device configs and Eq. 8 on
-``cuda`` bit for bit the CPU.  Every test
+``cuda`` bit for bit the CPU, and the evaluation service and the worker
+cluster over ``cuda`` engines bit for bit a local ``cuda`` engine.  Every test
 here needs an NVIDIA GPU (and nvcc); elsewhere each one skips with its
 reason.  Torch only, no JAX, so the
 file runs on the GPU machine:
@@ -615,3 +616,111 @@ def test_cuda_genetics_configs_and_fitness_equal_the_cpu(cuda):
     for b in (100.0, 200.0, 800.0):
         assert G.fitness_device(m, e_homo, b, 0.05, cuda).tobytes() == \
             G.fitness_device(m, e_homo, b, 0.05, "cpu").tobytes()
+
+
+# ------------------------------------- the service and the cluster (A11)
+
+def _cuda_exact(cuda):
+    return EvalEngine(["kan"], config=EngineConfig(backend="exact"),
+                      device=cuda)
+
+
+def _same_rows(a, b, keys=("latency", "energy", "tops_w", "area")):
+    for k in keys:
+        assert np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes(), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transport", ["client", "tcp"])
+def test_cuda_service_equals_a_local_cuda_engine(cuda, transport):
+    from repro_torch.serve.dse_service import DSEClient, DSEService
+    g = random_genomes(np.random.default_rng(5), 10)
+    svc = DSEService(_cuda_exact(cuda)).start()
+    try:
+        cl = (DSEClient(service=svc) if transport == "client"
+              else DSEClient(address=svc.listen(), timeout=120.0))
+        try:
+            res = cl.evaluate(g)
+            _same_rows(res, _cuda_exact(cuda).evaluate(g))
+            _same_rows(cl.rescore(g), _cuda_exact(cuda).rescore(g))
+        finally:
+            cl.close()
+    finally:
+        svc.stop()
+    cpu = EvalEngine(["kan"], config=EngineConfig(backend="exact"),
+                     device="cpu").evaluate(g)
+    for k in ("latency", "energy", "tops_w"):
+        fin = np.isfinite(cpu[k])
+        assert np.array_equal(fin, np.isfinite(res[k])), k
+        err = np.abs(res[k][fin] - cpu[k][fin]) \
+            / np.maximum(np.abs(cpu[k][fin]), 1e-300)
+        assert err.max(initial=0.0) <= 1e-9, k
+
+
+def _ga_inputs(cuda):
+    from repro_torch.core.dse.ga import GAConfig
+    from repro_torch.core.dse.sweep import run_sweep
+    sweep = run_sweep(["kan"], samples_per_stratum=4, seed=0,
+                      brackets=(100.0, 200.0), engine=_cuda_exact(cuda))
+    return sweep, GAConfig(population=12, generations=3, seed_top_k=6,
+                           early_stop=10_000)
+
+
+@pytest.mark.gpu
+def test_cuda_cluster_under_a_worker_kill_equals_an_unfaulted_run(cuda):
+    from repro_torch.core.dse.faults import FaultInjector
+    from repro_torch.core.dse.ga import run_ga
+    from repro_torch.serve.cluster import DSECluster
+    from repro_torch.serve.dse_service import DSEService
+    sweep, cfg = _ga_inputs(cuda)
+    clean = run_ga(sweep, 200.0, cfg, seed=0, engine=_cuda_exact(cuda))
+    inj = FaultInjector(seed=0, at={"worker_kill": (3,)})
+    svcs = [DSEService(_cuda_exact(cuda), worker_id=f"gpu-w{i}").start()
+            for i in range(2)]
+    cl = DSECluster(svcs, fault_injector=inj, backoff_s=0.01)
+    try:
+        served = run_ga(sweep, 200.0, cfg, seed=0, engine=cl, device=cuda)
+    finally:
+        cl.close()
+        for s in svcs:
+            s.stop(drain=False)
+    assert inj.fired()["worker_kill"] == 1
+    assert served.best_fitness == clean.best_fitness
+    assert served.best_genome.tobytes() == clean.best_genome.tobytes()
+    assert served.history == clean.history
+    _same_rows(served.best_metrics, clean.best_metrics,
+               ("latency", "energy", "tops_w"))
+
+
+@pytest.mark.gpu
+def test_cuda_served_search_runs_its_genetics_on_cuda(cuda, monkeypatch):
+    from repro_torch.core.dse import ga_device as G
+    from repro_torch.core.dse.ga import run_ga
+    from repro_torch.serve.dse_service import DSEClient, DSEService
+    sweep, cfg = _ga_inputs(cuda)
+    seeds = sweep.genomes[:8]
+    e_homo = sweep.homo_baseline()[200.0]
+    devices = []
+    real = G.genetics_step
+
+    def spy(pop, *a, **kw):
+        devices.append(pop.device.type)
+        return real(pop, *a, **kw)
+
+    monkeypatch.setattr(G, "genetics_step", spy)
+    svc = DSEService(_cuda_exact(cuda)).start()
+    try:
+        events = list(DSEClient(service=svc).search(
+            seeds, 200.0, e_homo, cfg=dict(population=12, generations=3,
+                                           seed_top_k=6, early_stop=10_000),
+            seed=0))
+    finally:
+        svc.stop()
+    assert events[-1]["event"] == "done", events[-1]
+    assert devices and set(devices) == {"cuda"}
+    from repro_torch.serve.dse_service import _SeedPool
+    local = run_ga(_SeedPool(["kan"], seeds, 200.0, e_homo), 200.0, cfg,
+                   seed=0, engine=_cuda_exact(cuda))
+    res = events[-1]["result"]
+    assert res["best_fitness"] == local.best_fitness
+    assert res["best_genome"] == local.best_genome.tolist()

@@ -64,5 +64,8 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.core.dse.device_memo",
                 "repro_torch.core.dse.ga_device",
                 "repro_torch.core.dse.checkpoint",
-                "repro_torch.core.dse.pipeline"):
+                "repro_torch.core.dse.pipeline",
+                "repro_torch.serve.dse_service", "repro_torch.serve.cluster",
+                "repro_torch.launch.hillclimb",
+                "repro_torch.core.workloads.extract"):
         assert mod in out["modules"], mod

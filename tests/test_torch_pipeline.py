@@ -138,8 +138,16 @@ def test_pipeline_validation():
         run_pipeline(WLS, seeds=(0,), brackets=(200.0,),
                      samples_per_stratum=2,
                      engine=EvalEngine(WLS, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        run_pipeline(WLS, seeds=(0,), cluster=object(), device="cpu")
+
+    class OtherContext:         # a cluster whose workers serve elsewhere
+        def check_workloads(self, workloads, calib=None):
+            return self
+
+        def context_key(self):
+            return bytes(32)
+
+    with pytest.raises(ValueError, match="context"):
+        run_pipeline(WLS, seeds=(0,), cluster=OtherContext(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_pipeline(WLS, seeds=(0,), brackets=(200.0,),
