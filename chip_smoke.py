@@ -49,7 +49,11 @@ script exits non-zero without printing a result):
                 at phase 15's (batch 4, 48 heads, 2,048 tokens, causal),
                 ssm_scan at phase 14's (mamba2-780m, batch 8 x 2,048, 48
                 heads, P 64, N 128, chunk 64), bf16, and the float32
-                CUDA-core ssm_scan there in chunks of 128 (1e-4);
+                CUDA-core ssm_scan there in chunks of 128 (1e-4); and
+                flash_attention non-causal at phases 24 and 25's shapes:
+                llama-3.2-vision's cross-attention (batch 4, 32 heads, 512
+                queries over 1,601 vision tokens, D 128) and seamless-m4t's
+                encoder (batch 4, 16 heads, 960 x 960 frames, D 64);
 10. serve    -- the LM main path: Jamba-v0.1 at full width, one period of
                 8 layers, random weights from ``torch.Generator`` seed 0,
                 ``ServeEngine(max_batch=4, max_len=1024)`` serving 8
@@ -67,7 +71,10 @@ script exits non-zero without printing a result):
                 magnitude, bf16), and the float32 CUDA-core ssm_scan_bwd
                 in chunks of 128 (1e-4), timed beside the plain version's
                 backward, the bound and, for flash, the backward of
-                ``scaled_dot_product_attention`` (a yardstick only);
+                ``scaled_dot_product_attention`` (a yardstick only); and
+                flash_attention_bwd non-causal at seamless-m4t's training
+                shapes (the encoder, 960 x 960, and the decoder's
+                cross-attention, 512 x 960; batch 4, 16 heads, D 64);
 13. horner   -- the KAN workload's first layer, 784 x 512 edge polynomials
                 of degree 8 over a batch of 64 (25.7 M elements), in
                 float32 and bfloat16 through ``ops.horner``, bit for bit
@@ -194,7 +201,32 @@ script exits non-zero without printing a result):
                 checkpoint replayed by a local run; (d) ``dse_hillclimb``
                 through a ``DSEClient`` byte for byte the local engine's;
                 the phase's seconds and each part's, the service counters
-                and the cluster's membership.
+                and the cluster's membership;
+23. serve MLA -- (after phase 16) deepseek-v2-lite whole (27 layers: the
+                dense-FFN prefix layer and 26 MLA + MoE layers, 64 routed
+                experts top-6 and 2 shared), weights from seed 0, served
+                as phase 10 serves Jamba: flash_attention launches 0
+                times (MLA's products are einsums);
+24. serve with context -- llama-3.2-vision (40 layers, 8 of them
+                cross-attention) and seamless-m4t (12 encoder and 12
+                decoder layers) whole, through ``serve/step.py`` with a
+                context (the reference's engine passes none): vision
+                embeddings (4, 1,601, 4,096), or ``encode`` of (4, 960,
+                1,024) frames; a (4, 512) prefill and 16 greedy decode
+                steps, cold and measured (the same tokens); flash_attention
+                launches once per encoder layer, once per layer and per
+                ``xattn`` in the prefill, never in a decode step;
+25. context card vs CPU, train -- (a) reduced deepseek, llama-3.2-vision
+                and seamless-m4t, layer by layer as phase 11, with a
+                context of 100 rows (the encoder's layers held too); (b)
+                phase 16 on reduced seamless-m4t and llama-3.2-vision (its
+                gradients layer by layer), a zeroed dq rejected; (c)
+                ``train_loop`` on seamless-m4t whole, 4 steps of 4 x 512
+                tokens and 960 frames, remat, float32 moments, one
+                checkpoint (deleted after): flash_attention 60 launches a
+                step (the encoder's 12 and the decoder's 24 twice, the
+                forward and its rematerialisation), flash_attention_bwd
+                36.
 
 Then one JSON line describing the kernels (times, launches, bounds) and,
 as the last line, ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
@@ -296,6 +328,19 @@ PARITY_DECODE_STEPS = 4
 LM_TOL = 2e-2                        # bf16, rtol and atol
 SSM_TOL = 5e-2                       # tests/test_kernels.py, bf16
 
+# phases 23-25: the configs that need MLA and the dense prefix, a vision
+# context or the encoder, at full width and depth (all three fit the card)
+MLA_ARCH = "deepseek-v2-lite-16b"
+VISION_ARCH = "llama-3.2-vision-11b"
+AUDIO_ARCH = "seamless-m4t-medium"
+CTX_BATCH, CTX_PROMPT, CTX_DECODE_STEPS = 4, 512, 16
+CTX_PARITY_ROWS = 100     # phase 25 (a): context rows of the reduced models
+ENC_TRAIN_BATCH, ENC_TRAIN_SEQ, ENC_TRAIN_STEPS = 4, 512, 4
+# seamless-m4t's first steps: at 0.02 its loss went from 12.83 to 10.94
+# and then 15.24 (step 4); at 0.002, 0.005 and 0.01 it fell to 10.53-10.75
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+ENC_TRAIN_LR = 0.005
+
 # the LM training path
 TRAIN_SEQ = 2048
 TRAIN_SSM_ARCH, TRAIN_SSM_BATCH, TRAIN_SSM_STEPS = "mamba2-780m", 8, 6
@@ -333,6 +378,9 @@ FLOAT32_ONLY, ZERO_GRAD = ("mamba.d_skip",), ("ffn.router.w",)
 # e4m3; the last layer dropped) move it by 9.4e-4 to 4.4e-2 (PERF.md)
 LOSS_RTOL = {"bfloat16": 2e-4, "float32": 1e-5}
 TRAIN_PARITY_ARCHS = ("jamba-v0.1-52b", "mamba2-780m", "starcoder2-15b")
+# the reduced configs whose gradients phases 16 and 25 (b) hold layer by
+# layer (their docstring says why)
+LAYER_BY_LAYER = ("jamba", "llama-3.2-vision")
 # the KAN workload's first layer (src/repro/core/workloads/misc.py): 784 x
 # 512 edge polynomials of degree 8, over a batch of 64
 KAN_ELEMENTS, KAN_DEGREE = 784 * 512 * 64, 8
@@ -2014,6 +2062,20 @@ def _lm_kernel_phase(torch, dev):
                               device=dev).to(bf16) for _ in range(3))
     flash_train = (lambda: kops.flash_attention(qt, kt, vt, causal=True),
                    lambda: kref.flash_attention_ref(qt, kt, vt, causal=True))
+    # the non-causal forms of phases 24 and 25 (their own generator, so
+    # that the inputs above stay those of earlier runs): llama-3.2-
+    # vision's cross-attention of a 512-token prompt over its 1,601 vision
+    # tokens, and seamless-m4t's encoder over 960 frames
+    gn = torch.Generator(device=dev).manual_seed(91)
+    noncausal = {}
+    for tag, arch, rows in (("cross", VISION_ARCH, CTX_PROMPT),
+                            ("encoder", AUDIO_ARCH, None)):
+        ncfg = get_config(arch)
+        T = ncfg.num_frontend_tokens
+        shapes = ((CTX_BATCH, ncfg.n_heads, rows or T, ncfg.head_dim),) \
+            + ((CTX_BATCH, ncfg.n_heads, T, ncfg.head_dim),) * 2
+        noncausal[tag] = [torch.randn(sh, generator=gn, device=dev).to(bf16)
+                          for sh in shapes]
     ssm = (lambda: kops.ssm_scan(x, dt, a_log, b, c, chunk=L),
            lambda: kref.ssm_scan_ref(x, dt, a_log, b, c, chunk=L))
     # phase 14's scan (mamba2-780m at batch 8 x 2,048)
@@ -2065,6 +2127,20 @@ def _lm_kernel_phase(torch, dev):
             library=lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True),
             shape=dict(B=Bt, H=Ht, S=St, T=St, D=Dt, causal=True)),
+        **{f"flash_attention@{tag}": dict(
+            run=(lambda t=t: kops.flash_attention(*t, causal=False),
+                 lambda t=t: kref.flash_attention_ref(*t, causal=False)),
+            tol=LM_TOL,
+            # 2 products of 2 D flops for every (query, key) pair, all
+            # visible; q, k, v read and o written once
+            ops=4 * t[0].numel() * t[1].shape[2],
+            bytes=(2 * t[0].numel() + 2 * t[1].numel())
+            * t[0].element_size(),
+            library=lambda t=t: F.scaled_dot_product_attention(
+                *t, is_causal=False),
+            shape=dict(B=t[0].shape[0], H=t[0].shape[1], S=t[0].shape[2],
+                       T=t[1].shape[2], D=t[0].shape[3], causal=False))
+           for tag, t in noncausal.items()},
         "ssm_scan": ssm_case(ssm, x, b, L, Hs,
                              dict(B=B, S=S, H=Hs, P=P, N=N, chunk=L)),
         "ssm_scan@train": ssm_case(ssm_train, xm, bm, Lm, Hm,
@@ -2105,18 +2181,15 @@ def _lm_kernel_phase(torch, dev):
     return out
 
 
-def _serve_phase(torch, np, dev, profile):
-    """Phase 10, the LM main path: ServeEngine on full-width Jamba-v0.1
-    (one period of 8 layers) serving 8 requests in admission waves, once
-    cold and once measured (the same requests, the same tokens)."""
+def _serve_phase(torch, np, dev, n, cfg, expected, profile=False):
+    """Phases 10 and 23, the LM serving path: ServeEngine on ``cfg`` serving
+    8 requests in admission waves, once cold and once measured (the same
+    requests, the same tokens).  ``expected(waves)`` gives each kernel's
+    launches in the measured run."""
     from repro_torch.kernels import ops as kops
     from repro_torch.models.model import Model
-    from repro_torch.models.registry import get_config
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
-    check(cfg.n_repeats == 1 and cfg.d_model == 4096,
-          f"{cfg.name}: n_repeats {cfg.n_repeats}, d_model {cfg.d_model}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev,
@@ -2170,13 +2243,9 @@ def _serve_phase(torch, np, dev, profile):
     check(results == cold_results, "the warm run generated other tokens")
     waves = len(timed["prefill"])
     check(waves >= 2, f"{waves} admission waves")
-    check(launches["flash_attention"] == waves,
-          f"flash_attention launched {launches['flash_attention']} times "
-          f"in {waves} waves")
-    n_mamba = sum(m == "mamba" for m, _ in cfg.pattern())
-    check(launches["ssm_scan"] == n_mamba * waves,
-          f"ssm_scan launched {launches['ssm_scan']} times, expected "
-          f"{n_mamba} x {waves}")
+    for name, want in expected(waves).items():
+        check(launches[name] == want, f"{name} launched {launches[name]} "
+              f"times in {waves} waves, expected {want}")
     check(sorted(results) == list(range(SERVE_REQUESTS)), "lost requests")
     for rid, toks in results.items():
         check(len(toks) == int(news[rid]) and
@@ -2197,7 +2266,7 @@ def _serve_phase(torch, np, dev, profile):
            "decode_bound_ms": weights_gb * 1e9 / PEAK_HBM_BYTES_PER_S * 1e3,
            "decode_tokens_per_s": decode_tokens / max(decode_s, 1e-9),
            "wall_s": wall, "cold_wall_s": cold_wall, "launches": launches}
-    _phase(10, "serve", f"{cfg.name} full width (d_model {cfg.d_model}, "
+    _phase(n, "serve", f"{cfg.name} full width (d_model {cfg.d_model}, "
            f"{cfg.n_layers} layers, {weights_gb:.2f} GB bf16 weights, built "
            f"in {init_s:.2f} s), ServeEngine(max_batch={SERVE_BATCH}, "
            f"max_len={SERVE_MAX_LEN}) on {dev}: {SERVE_REQUESTS} requests, "
@@ -2218,41 +2287,59 @@ def _serve_phase(torch, np, dev, profile):
     return out
 
 
-def _card_vs_cpu_phase(torch, np, dev):
-    """Phase 11: reduced Jamba (the repeat axis at 2) with the same weights
-    on the CPU and on the card.  Each layer on the card takes the CPU
-    layer's input, for the prefill and for 4 decode steps, and its output
-    and the logits must agree within 2e-2.  (Run end to end, the two would
-    part wherever a last-bit difference flips a top-2 MoE routing choice;
-    tests/test_torch_lm_serve.py pins that sensitivity in the reference.)"""
+def _layers_card_vs_cpu(torch, np, dev, cfg, rng, ctx_rows=0):
+    """``cfg`` with the same weights (``torch.Generator`` seed 0) on the CPU
+    and on the card.  Each card layer takes the CPU layer's input, for a
+    prefill of 2 x 128 tokens and PARITY_DECODE_STEPS decode steps, and its
+    output and the last-position logits must agree within LM_TOL.  With
+    ``ctx_rows``, a context of that many rows from ``rng`` goes to every
+    layer: a vision model's embeddings, or an encoder-decoder's frames,
+    which the encoder turns into the context on the CPU, its layers and
+    final norm held the same way.  Returns the largest errors over the
+    layer outputs and over the logits."""
     from repro_torch.models import model as M
-    from repro_torch.models.registry import get_config
 
-    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
-                              n_layers=PARITY_LAYERS)
     cpu = torch.device("cpu")
     ref = M.Model(cfg, device=cpu, generator=torch.Generator().manual_seed(0))
     card = M.Model(cfg, device=dev, generator=None)
     card.load_state_dict(ref.state_dict())
-    rng = np.random.default_rng(11)
     B, S = 2, 128
     T = S + PARITY_DECODE_STEPS
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T)).astype(
         np.int32))
-    caches = {m: M.init_cache(cfg, B, T, m.device) for m in (ref, card)}
-    steps = [(toks[:, :S], torch.arange(S).expand(B, S))]
-    steps += [(toks[:, t:t + 1], torch.full((B, 1), t)) for t in
-              range(S, T)]
     worst = {"layers": 0.0, "logits": 0.0}
+
+    def held(got, want):
+        worst["layers"] = max(worst["layers"],
+                              _max_err(got.cpu(), want, LM_TOL))
+
+    ctx = None
     with torch.no_grad():
+        if ctx_rows:
+            ctx = torch.from_numpy(rng.normal(size=(
+                B, ctx_rows, cfg.d_model)).astype(np.float32)).to(
+                    M.L.DTYPE)
+        if cfg.encoder_layers:
+            for i, layer in enumerate(ref.encoder):
+                want = layer(ctx)
+                held(card.encoder[i](ctx.to(dev)), want)
+                ctx = want
+            want = M.L.norm(ref.enc_final_norm.scale, ctx, cfg.norm)
+            held(M.L.norm(card.enc_final_norm.scale, ctx.to(dev), cfg.norm),
+                 want)
+            ctx = want
+        card_ctx = None if ctx is None else ctx.to(dev)
+        caches = {m: M.init_cache(cfg, B, T, m.device) for m in (ref, card)}
+        steps = [(toks[:, :S], torch.arange(S).expand(B, S))]
+        steps += [(toks[:, t:t + 1], torch.full((B, 1), t)) for t in
+                  range(S, T)]
         for tk, pos in steps:
             x = M._embed(ref, tk)
             for i, layer in enumerate(ref.layers):
-                want, _ = layer(x, pos, caches[ref][i])
+                want, _ = layer(x, pos, caches[ref][i], ctx)
                 got, _ = card.layers[i](x.to(dev), pos.to(dev),
-                                        caches[card][i])
-                worst["layers"] = max(worst["layers"],
-                                      _max_err(got.cpu(), want, LM_TOL))
+                                        caches[card][i], card_ctx)
+                held(got, want)
                 x = want
             heads = []
             for m in (ref, card):
@@ -2261,9 +2348,25 @@ def _card_vs_cpu_phase(torch, np, dev):
                     "bsd,dv->bsv", h, m.head()))[..., -1, :cfg.vocab])
             worst["logits"] = max(worst["logits"],
                                   _max_err(heads[1].cpu(), heads[0], LM_TOL))
+    return worst
+
+
+def _card_vs_cpu_phase(torch, np, dev):
+    """Phase 11: reduced Jamba (the repeat axis at 2) with the same weights
+    on the CPU and on the card, layer by layer, for the prefill and for 4
+    decode steps, within 2e-2.  (Run end to end, the two would part
+    wherever a last-bit difference flips a top-2 MoE routing choice;
+    tests/test_torch_lm_serve.py pins that sensitivity in the
+    reference.)"""
+    from repro_torch.models.registry import get_config
+
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
+                              n_layers=PARITY_LAYERS)
+    worst = _layers_card_vs_cpu(torch, np, dev, cfg,
+                                np.random.default_rng(11))
     _phase(11, "serve card vs CPU", f"{cfg.name} ({cfg.n_layers} layers, "
            f"repeat axis {cfg.n_repeats}), same weights on cpu and {dev}, "
-           f"each card layer fed the CPU layer's input: prefill of {B} x {S} "
+           f"each card layer fed the CPU layer's input: prefill of 2 x 128 "
            f"and {PARITY_DECODE_STEPS} decode steps, max abs err "
            f"{worst['layers']:.4g} over layer outputs, {worst['logits']:.4g} "
            f"over last-position logits (limit {LM_TOL} rel + abs)")
@@ -2311,6 +2414,7 @@ def _lm_phases(torch, np, dev, record, build_s, profile):
     """Phases 8-11, the LM serving path; returns the kernel lines of
     flash_attention and ssm_scan."""
     from repro_torch.kernels import _build, flash_attention, ssm_scan
+    from repro_torch.models.registry import get_config
 
     t0 = time.perf_counter()
     flash_attention._library()
@@ -2343,7 +2447,15 @@ def _lm_phases(torch, np, dev, record, build_s, profile):
     record["lm_kernels"] = _lm_kernel_phase(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    record["serve"] = _serve_phase(torch, np, dev, profile)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    check(cfg.n_repeats == 1 and cfg.d_model == 4096,
+          f"{cfg.name}: n_repeats {cfg.n_repeats}, d_model {cfg.d_model}")
+    n_mamba = sum(m == "mamba" for m, _ in cfg.pattern())
+    # each admission wave launches flash_attention once and ssm_scan once
+    # per Mamba2 layer
+    record["serve"] = _serve_phase(
+        torch, np, dev, 10, cfg, lambda waves: {
+            "flash_attention": waves, "ssm_scan": n_mamba * waves}, profile)
     gc.collect()
     torch.cuda.empty_cache()
     record["card_vs_cpu_lm"] = _card_vs_cpu_phase(torch, np, dev)
@@ -2451,55 +2563,73 @@ def _lm_bwd_kernel_phase(torch, dev):
         gc.collect()
         torch.cuda.empty_cache()
 
-    # ---- flash_attention_bwd: starcoder2-15b, batch 4 x 2,048 ------------
-    cfg = get_config(TRAIN_ATTN_ARCH)
-    B, H, S, D = TRAIN_ATTN_BATCH, cfg.n_heads, TRAIN_SEQ, cfg.head_dim
-    q, k, v, do = (torch.randn((B, H, S, D), generator=g, device=dev).to(bf16)
-                   for _ in range(4))
-    o, lse = flash_attention_cuda(q, k, v, True, with_lse=True)
-    ins = [t.detach().requires_grad_() for t in (q, k, v)]
-    y = kref.flash_attention_ref(*ins, True)
-    lib_ins = [t.detach().requires_grad_() for t in (q, k, v)]
-    lib_y = F.scaled_dot_product_attention(*lib_ins, is_causal=True)
+    # ---- flash_attention_bwd: starcoder2-15b, batch 4 x 2,048, causal;
+    # seamless-m4t's training shapes, non-causal: the encoder over 960
+    # frames and the decoder's cross-attention of 512 tokens over them
+    # (their own generator, so that the first case's inputs stay those of
+    # earlier runs) ----------------------------------------------------------
+    acfg = get_config(AUDIO_ARCH)
+    frames = acfg.num_frontend_tokens
+    gn = torch.Generator(device=dev).manual_seed(122)
+    for name, arch, B, S, T, causal, gen in (
+            ("flash_attention_bwd", TRAIN_ATTN_ARCH, TRAIN_ATTN_BATCH,
+             TRAIN_SEQ, TRAIN_SEQ, True, g),
+            ("flash_attention_bwd@encoder", AUDIO_ARCH, ENC_TRAIN_BATCH,
+             frames, frames, False, gn),
+            ("flash_attention_bwd@cross", AUDIO_ARCH, ENC_TRAIN_BATCH,
+             ENC_TRAIN_SEQ, frames, False, gn)):
+        cfg = get_config(arch)
+        H, D = cfg.n_heads, cfg.head_dim
+        q, k, v, do = (torch.randn(sh, generator=gen, device=dev).to(bf16)
+                       for sh in ((B, H, S, D), (B, H, T, D), (B, H, T, D),
+                                  (B, H, S, D)))
+        o, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        y = kref.flash_attention_ref(*ins, causal)
+        lib_ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_y = F.scaled_dot_product_attention(*lib_ins, is_causal=causal)
 
-    def kernel():
-        return kops.flash_attention_bwd(q, k, v, o, lse, do, True)
+        def kernel():
+            return kops.flash_attention_bwd(q, k, v, o, lse, do, causal)
 
-    def plain():
-        return torch.autograd.grad(y, ins, do, retain_graph=True)
+        def plain():
+            return torch.autograd.grad(y, ins, do, retain_graph=True)
 
-    def library():
-        return torch.autograd.grad(lib_y, lib_ins, do, retain_graph=True)
+        def library():
+            return torch.autograd.grad(lib_y, lib_ins, do, retain_graph=True)
 
-    def kernel_fwd_bwd():
-        t = [a.detach().requires_grad_() for a in (q, k, v)]
-        return torch.autograd.grad(kops.flash_attention(*t, causal=True), t,
-                                   do)
+        def kernel_fwd_bwd():
+            t = [a.detach().requires_grad_() for a in (q, k, v)]
+            return torch.autograd.grad(kops.flash_attention(
+                *t, causal=causal), t, do)
 
-    def library_fwd_bwd():
-        t = [a.detach().requires_grad_() for a in (q, k, v)]
-        return torch.autograd.grad(F.scaled_dot_product_attention(
-            *t, is_causal=True), t, do)
+        def library_fwd_bwd():
+            t = [a.detach().requires_grad_() for a in (q, k, v)]
+            return torch.autograd.grad(F.scaled_dot_product_attention(
+                *t, is_causal=causal), t, do)
 
-    errs = [_grad_err(a, w, FLASH_BWD_TOL, f"flash_attention_bwd d{n}")
-            for n, a, w in zip("qkv", kernel(), plain())]
-    pairs = B * H * S * (S + 1) // 2
-    ops = 5 * 2 * D * pairs          # s, dP, dV, dK, dQ over the visible pairs
-    n_bytes = 8 * q.numel() * 2 + lse.numel() * 4   # q k v o dO in, dq dk dv out
-    bound_ms, bound_by = _bound(ops, n_bytes, PEAK_BF16_FLOPS)
-    out["flash_attention_bwd"] = {
-        "max_abs_err": max(e for e, _ in errs),
-        "max_rel_err": max(r for _, r in errs),
-        "ms": _time_ms(torch, kernel, 5), "plain_ms": _time_ms(torch, plain, 3),
-        "library_ms": _time_ms(torch, library, 10),
-        "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
-        "bytes": n_bytes, "peak": PEAK_BF16_FLOPS, "tol": FLASH_BWD_TOL,
-        "fwd_bwd_ms": _time_ms(torch, kernel_fwd_bwd, 5),
-        "library_fwd_bwd_ms": _time_ms(torch, library_fwd_bwd, 10),
-        "shape": {"B": B, "H": H, "S": S, "T": S, "D": D, "causal": True}}
-    del q, k, v, do, o, lse, ins, y, lib_ins, lib_y
-    gc.collect()
-    torch.cuda.empty_cache()
+        errs = [_grad_err(a, w, FLASH_BWD_TOL, f"{name} d{n}")
+                for n, a, w in zip("qkv", kernel(), plain())]
+        pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * T
+        ops = 5 * 2 * D * pairs    # s, dP, dV, dK, dQ over the visible pairs
+        # q, o, dO in and dq out; k, v in and dk, dv out
+        n_bytes = 4 * (q.numel() + k.numel()) * 2 + lse.numel() * 4
+        bound_ms, bound_by = _bound(ops, n_bytes, PEAK_BF16_FLOPS)
+        out[name] = {
+            "max_abs_err": max(e for e, _ in errs),
+            "max_rel_err": max(r for _, r in errs),
+            "ms": _time_ms(torch, kernel, 5),
+            "plain_ms": _time_ms(torch, plain, 3),
+            "library_ms": _time_ms(torch, library, 10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+            "bytes": n_bytes, "peak": PEAK_BF16_FLOPS, "tol": FLASH_BWD_TOL,
+            "fwd_bwd_ms": _time_ms(torch, kernel_fwd_bwd, 5),
+            "library_fwd_bwd_ms": _time_ms(torch, library_fwd_bwd, 10),
+            "shape": {"B": B, "H": H, "S": S, "T": T, "D": D,
+                      "causal": causal}}
+        del q, k, v, do, o, lse, ins, y, lib_ins, lib_y
+        gc.collect()
+        torch.cuda.empty_cache()
     for name, r in out.items():
         lib = "none (no single PyTorch call computes it)" \
             if r["library_ms"] is None else \
@@ -2569,18 +2699,27 @@ def _horner_phase(torch, dev):
     return out
 
 
-def _train_phase(torch, np, dev, n, name, cfg, batch, steps, lr, kernel,
-                 cut, profile):
-    """Phases 14 and 15: ``train_loop`` on ``cfg`` from fresh random weights
-    (seed 0) for ``steps`` steps of ``batch`` x TRAIN_SEQ tokens, remat,
-    AdamW with float32 moments, and the loop's checkpoint of the last step
-    (deleted after).  The launch counters are zeroed just before and read
-    just after: ``kernel`` (the mixer's forward) launches twice per layer
-    and step (the forward and its rematerialisation in the backward) and
-    its backward once.  ``profile`` traces one more step after the counted
-    run."""
-    from repro_torch.checkpoint.ckpt import latest_step
+def _data(cfg, seq, batch, seed):
+    """The data pipeline ``train_loop`` makes for ``cfg``: tokens, and an
+    encoder-decoder's frames or a vision model's embeddings."""
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+
+    return SyntheticTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed,
+        frontend="audio" if cfg.encoder_layers else cfg.frontend,
+        num_frontend_tokens=cfg.num_frontend_tokens, d_model=cfg.d_model))
+
+
+def _train_phase(torch, np, dev, n, name, cfg, batch, seq, steps, lr,
+                 expected, cut, profile=False):
+    """Phases 14, 15 and 25 (c): ``train_loop`` on ``cfg`` from fresh random
+    weights (seed 0) for ``steps`` steps of ``batch`` x ``seq`` tokens (and
+    the frontend's input the data pipeline adds), remat, AdamW with
+    float32 moments, and the loop's checkpoint of the last step (deleted
+    after).  The launch counters are zeroed just before and read just
+    after: each kernel of ``expected`` launches that many times per step.
+    ``profile`` traces one more step after the counted run."""
+    from repro_torch.checkpoint.ckpt import latest_step
     from repro_torch.kernels import ops as kops
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import TrainLoopConfig, train_loop
@@ -2602,7 +2741,7 @@ def _train_phase(torch, np, dev, n, name, cfg, batch, steps, lr, kernel,
     t0 = time.perf_counter()
     out = train_loop(cfg, TrainLoopConfig(
         steps=steps, ckpt_every=steps, ckpt_dir=ckpt_dir, global_batch=batch,
-        seq_len=TRAIN_SEQ, resume=False), opt, on_step=on_step, device=dev)
+        seq_len=seq, resume=False), opt, on_step=on_step, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kops.launch_counts)         # read just after
@@ -2616,7 +2755,7 @@ def _train_phase(torch, np, dev, n, name, cfg, batch, steps, lr, kernel,
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(latest_step(ckpt_dir) == steps, "no checkpoint of the last step")
     r = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-         "params": n_params, "batch": batch, "seq": TRAIN_SEQ,
+         "params": n_params, "batch": batch, "seq": seq,
          "steps": steps, "losses": losses,
          "ckpt_gb": sum(os.path.getsize(os.path.join(dp, f))
                         for dp, _, fs in os.walk(ckpt_dir) for f in fs) / 1e9,
@@ -2625,24 +2764,20 @@ def _train_phase(torch, np, dev, n, name, cfg, batch, steps, lr, kernel,
             f"{r['ckpt_save_s']:.2f} s in save_async (snapshot to host), "
             f"{r['ckpt_wait_s']:.2f} s waiting for the write")
     del out
-    mixer = "mamba" if kernel == "ssm_scan" else "attn"
-    n_mixer = sum(m == mixer for m, _ in cfg.pattern()) * cfg.n_repeats
-    check(launches[kernel] == 2 * n_mixer * steps,
-          f"{kernel} launched {launches[kernel]} times, expected 2 x "
-          f"{n_mixer} x {steps}")
-    check(launches[f"{kernel}_bwd"] == n_mixer * steps,
-          f"{kernel}_bwd launched {launches[f'{kernel}_bwd']} times, "
-          f"expected {n_mixer} x {steps}")
+    for kernel, per_step in expected.items():
+        check(launches[kernel] == per_step * steps,
+              f"{kernel} launched {launches[kernel]} times, expected "
+              f"{per_step} x {steps}")
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     ms = sum(step_ms) / len(step_ms)
     r.update({"first_step_ms": (stamps[0] - t0) * 1e3, "step_ms": step_ms,
               "ms_per_step": ms,
-              "tokens_per_s": batch * TRAIN_SEQ / ms * 1e3,
+              "tokens_per_s": batch * seq / ms * 1e3,
               "max_memory_allocated_gb": peak_gb, "wall_s": wall,
               "launches": launches})
     _phase(n, name, f"train_loop on {cfg.name} (d_model {cfg.d_model}, "
            f"{cfg.n_layers} layers{cut}, {n_params / 1e9:.3f}e9 parameters) "
-           f"on {dev}: {steps} steps of {batch} x {TRAIN_SEQ} tokens, remat, "
+           f"on {dev}: {steps} steps of {batch} x {seq} tokens, remat, "
            f"AdamW(float32 moments, lr {lr} x warmup_cosine); "
            f"losses {[round(x, 4) for x in losses]}; steps 2-{steps} at "
            f"{ms:.1f} ms ({[round(x, 1) for x in step_ms]}) = "
@@ -2652,10 +2787,8 @@ def _train_phase(torch, np, dev, n, name, cfg, batch, steps, lr, kernel,
            f"{launches}")
     if profile:
         step_fn = make_train_step(cfg, opt)
-        extra = {k: torch.from_numpy(v).to(dev)
-                 for k, v in SyntheticTokenPipeline(DataConfig(
-                     vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=batch,
-                     seed=0, d_model=cfg.d_model)).batch(steps).items()}
+        extra = {k: torch.from_numpy(v).to(dev) for k, v in
+                 _data(cfg, seq, batch, 0).batch(steps).items()}
 
         def run():   # reading the loss synchronises
             nonlocal state
@@ -2714,33 +2847,41 @@ def _float32_only_spread(per_dtype):
                 for n in g32 if n.endswith(FLOAT32_ONLY)), default=0.0)
 
 
-def _block_grads(torch, block, x, cot, pos):
+def _block_grads(torch, block, x, cot, pos, ctx=None):
     """The gradients of ``block``'s output against ``cot`` for its
-    parameters and its input ``x`` ("input"), on the CPU."""
+    parameters and its input ``x`` ("input"), on the CPU; ``ctx`` is the
+    context of a cross-attention layer."""
     dtype = next(block.parameters()).dtype
     dev = next(block.parameters()).device
     x = x.to(dev, dtype).requires_grad_()
+    if ctx is not None:
+        ctx = ctx.to(dev, dtype)
     names, ps = zip(*block.named_parameters())
-    gs = torch.autograd.grad(block(x, pos.to(dev), None)[0], (x,) + ps,
-                             cot.to(dev, dtype), allow_unused=True)
+    gs = torch.autograd.grad(block(x, pos.to(dev), None, ctx)[0],
+                             (x,) + ps, cot.to(dev, dtype),
+                             allow_unused=True)
     return {n: (torch.zeros_like(p) if g is None else g).cpu()
             for n, p, g in zip(("input",) + names, (x,) + ps, gs)}
 
 
-def _train_card_vs_cpu_phase(torch, np, dev):
-    """Phase 16: one training step's loss and gradients (``make_grads_fn``,
-    remat) of reduced Jamba, mamba2 and starcoder2 with the same weights
-    on the CPU and the card, in bf16 and with the models made float32.
-    Jamba's gradients are compared layer by layer (each card block fed
-    the CPU block's input and one random output gradient): its top-2
-    routing turns on the last bit of bf16 router logits (phase 11).
-    Planted faults must be rejected: the loss of the card's bf16 model
-    with its first layer's matrices rounded through float8 e4m3, and with
-    its last layer dropped; the gradients of the card's models with a
-    zeroed dq (starcoder2's attention) or db (mamba2's SSD scan)."""
+def _train_card_vs_cpu_phase(torch, np, dev, phase=16,
+                             archs=TRAIN_PARITY_ARCHS):
+    """Phases 16 and 25 (b): one training step's loss and gradients
+    (``make_grads_fn``, remat) of the reduced ``archs`` with the same
+    weights on the CPU and the card, in bf16 and with the models made
+    float32; the batch carries the frames or vision embeddings that the
+    data pipeline gives the config.  Jamba's and llama-3.2-vision's
+    gradients are compared layer by layer (each card block fed the CPU
+    block's input, the context and one random output gradient): Jamba's
+    top-2 routing turns on the last bit of bf16 router logits (phase 11),
+    and five bf16 layers carry a last-bit difference past 2e-2 of
+    llama-3.2-vision's logits (tests/test_torch_lm_context.py).  Planted
+    faults must be rejected: the loss of the card's bf16 model with its
+    first layer's matrices rounded through float8 e4m3, and with its last
+    layer dropped; the gradients of the card's models with a zeroed dq
+    (the attention's) or db (mamba2's SSD scan)."""
     import copy
 
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
     from repro_torch.kernels import ops as kops
     from repro_torch.models import model as M
     from repro_torch.models.registry import get_config
@@ -2752,13 +2893,12 @@ def _train_card_vs_cpu_phase(torch, np, dev):
     def loss_off(dtype, got, want):
         return abs(got - want) > LOSS_RTOL[dtype] * abs(want)
 
-    for arch in TRAIN_PARITY_ARCHS:
+    for arch in archs:
         cfg = get_config(arch).reduced()
         bf16 = M.Model(cfg, device=cpu,
                        generator=torch.Generator().manual_seed(16))
         models = {"bfloat16": bf16, "float32": copy.deepcopy(bf16).float()}
-        batch = SyntheticTokenPipeline(DataConfig(
-            vocab=cfg.vocab, seq_len=128, global_batch=2, seed=16)).batch(0)
+        batch = _data(cfg, 128, 2, 16).batch(0)
         grads_of = make_grads_fn(cfg, remat=True)
 
         def on(d, m):
@@ -2783,10 +2923,13 @@ def _train_card_vs_cpu_phase(torch, np, dev):
                         "loss_rel_err": abs(lg - lc) / abs(lc)}
             runs[dtype] = (gc_, gg)
         spread = _float32_only_spread({t: g[0] for t, g in runs.items()})
-        if arch.startswith("jamba"):
+        if arch.startswith(LAYER_BY_LAYER):
             rng = np.random.default_rng(16)
             B, S = batch["tokens"].shape
             pos = torch.arange(S).expand(B, S)
+            ctx = batch.get("vision_embeds")
+            if ctx is not None:
+                ctx = torch.from_numpy(ctx)
             need = {"bfloat16": 0.0, "float32": 0.0}
             with torch.no_grad():
                 x = M._embed(bf16, torch.from_numpy(batch["tokens"]))
@@ -2794,7 +2937,8 @@ def _train_card_vs_cpu_phase(torch, np, dev):
             for i in range(len(bf16.layers)):
                 cot = torch.from_numpy(rng.normal(size=x.shape).astype(
                     np.float32))
-                per = {t: [_block_grads(torch, mm.layers[i], x, cot, pos)
+                per = {t: [_block_grads(torch, mm.layers[i], x, cot, pos,
+                                        ctx)
                            for mm in (m, cards[t])]
                        for t, m in models.items()}
                 for t, (want, got) in per.items():
@@ -2805,7 +2949,8 @@ def _train_card_vs_cpu_phase(torch, np, dev):
                 spread = max(spread, _float32_only_spread(
                     {t: g[0] for t, g in per.items()}))
                 with torch.no_grad():
-                    x = bf16.layers[i](x, pos, None)[0]
+                    x = bf16.layers[i](x, pos, None, None if ctx is None
+                                       else ctx.to(x.dtype))[0]
             del cards
         else:
             need = {}
@@ -2822,7 +2967,10 @@ def _train_card_vs_cpu_phase(torch, np, dev):
             m = card_copy(bf16)
             with torch.no_grad():
                 if fault == "fp8_first_layer":
-                    for p in m.layers[0].parameters():
+                    # the first layer the input meets: an encoder-
+                    # decoder's first encoder layer
+                    first = (m.encoder or m.layers)[0]
+                    for p in first.parameters():
                         if p.dim() >= 2:
                             p.copy_(p.to(torch.float8_e4m3fn).to(p.dtype))
                 else:
@@ -2832,8 +2980,11 @@ def _train_card_vs_cpu_phase(torch, np, dev):
                   f"passes a planted fault ({fault}: {lf} against {lc})")
             r[f"loss_rel_err_{fault}"] = abs(lf - lc) / abs(lc)
         # planted faults: a zeroed dq or db on the card
-        fault = {"starcoder2-15b": ("dq", "flash_attention", 0),
-                 "mamba2-780m": ("db", "ssm_scan", 3)}.get(arch)
+        # (a model held layer by layer has no whole-model gradients to
+        # hold a fault against)
+        fault = ("db", "ssm_scan", 3) if arch == "mamba2-780m" \
+            else None if arch.startswith(LAYER_BY_LAYER) \
+            else ("dq", "flash_attention", 0)
         if fault:
             name, fn, arg = fault
             real = getattr(kops, fn)
@@ -2855,8 +3006,9 @@ def _train_card_vs_cpu_phase(torch, np, dev):
                 setattr(kops, fn, real)
         out[arch] = r
         del bf16, models, runs
-    _phase(16, "train card vs CPU", "; ".join(
-        f"{a} (reduced{', layer by layer' if a.startswith('jamba') else ''})"
+    _phase(phase, "train card vs CPU", "; ".join(
+        f"{a} (reduced"
+        f"{', layer by layer' if a.startswith(LAYER_BY_LAYER) else ''})"
         f": loss rel err bf16 {r['bfloat16']['loss_rel_err']:.3g}, float32 "
         f"{r['float32']['loss_rel_err']:.3g} (planted: first layer in fp8 "
         f"{r['loss_rel_err_fp8_first_layer']:.3g}, last layer dropped "
@@ -2889,16 +3041,23 @@ def _train_phases(torch, np, dev, record, profile):
     check(ssm_cfg.n_layers == 48 and ssm_cfg.d_model == 1536,
           f"{ssm_cfg.name}: {ssm_cfg.n_layers} layers, d_model "
           f"{ssm_cfg.d_model}")
+    # the mixer's forward launches twice per layer and step (the forward
+    # and its rematerialisation in the backward), its backward once
+    n_mamba = ssm_cfg.n_layers
     record["train"] = _train_phase(
-        torch, np, dev, 14, "train", ssm_cfg, TRAIN_SSM_BATCH,
-        TRAIN_SSM_STEPS, TRAIN_SSM_LR, "ssm_scan", "", profile=profile)
+        torch, np, dev, 14, "train", ssm_cfg, TRAIN_SSM_BATCH, TRAIN_SEQ,
+        TRAIN_SSM_STEPS, TRAIN_SSM_LR,
+        {"ssm_scan": 2 * n_mamba, "ssm_scan_bwd": n_mamba}, "",
+        profile=profile)
     attn_cfg = dc.replace(get_config(TRAIN_ATTN_ARCH),
                           n_layers=TRAIN_ATTN_LAYERS)
     check(attn_cfg.d_model == 6144 and attn_cfg.d_ff == 24576,
           f"{attn_cfg.name}: d_model {attn_cfg.d_model}")
+    n_attn = attn_cfg.n_layers
     record["train_attention"] = _train_phase(
         torch, np, dev, 15, "train attention", attn_cfg, TRAIN_ATTN_BATCH,
-        TRAIN_ATTN_STEPS, TRAIN_ATTN_LR, "flash_attention",
+        TRAIN_SEQ, TRAIN_ATTN_STEPS, TRAIN_ATTN_LR,
+        {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn},
         f", cut from {get_config(TRAIN_ATTN_ARCH).n_layers}",
         profile=profile)
     record["train_card_vs_cpu"] = _train_card_vs_cpu_phase(torch, np, dev)
@@ -2922,6 +3081,214 @@ def _train_phases(torch, np, dev, record, profile):
          "replaces": "src/repro/kernels/horner.py:37",
          "launches": record["horner"]["launches"],
          **{k: record["horner"]["float32"][k] for k in keys}}]
+
+
+def _context_serve_phase(torch, np, dev):
+    """Phase 24: llama-3.2-vision and seamless-m4t whole, served through the
+    steps of ``serve/step.py`` with a context (the reference's engine
+    passes none): (4, 512) prompts, one prefill and CTX_DECODE_STEPS greedy
+    decode steps, the vision embeddings (4, 1601, 4096) or the encoder's
+    output over (4, 960, 1024) frames as ``ctx``; once cold, once
+    measured, the same tokens.  In the measured run the counters are
+    zeroed just before and read after each part: ``encode`` launches
+    flash_attention once per encoder layer, the prefill once per layer
+    and once more per ``xattn``, a decode step never."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.model import Model, _layer_kinds, encode
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve.step import (greedy_sample, make_decode_step,
+                                        make_prefill_step)
+
+    out = {}
+    for arch in (VISION_ARCH, AUDIO_ARCH):
+        cfg = get_config(arch)
+        kinds = [m for m, _ in _layer_kinds(cfg)]
+        n_xattn = kinds.count("attn") if cfg.encoder_layers else 0
+        want = {"encode": cfg.encoder_layers,
+                "prefill": len(kinds) + n_xattn, "decode": 0}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gb = sum(p.numel() * p.element_size()
+                         for p in model.parameters()) / 1e9
+        rng = np.random.default_rng(24)
+        T = cfg.num_frontend_tokens
+        front = torch.from_numpy(rng.normal(size=(
+            CTX_BATCH, T, cfg.d_model)).astype(np.float32)).to(dev)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+            CTX_BATCH, CTX_PROMPT)).astype(np.int32)).to(dev)
+        prefill = make_prefill_step(cfg, SERVE_MAX_LEN)
+        decode = make_decode_step(cfg)
+
+        def timed(fn, *a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            return r, (time.perf_counter() - t) * 1e3
+
+        def finite(logits, what):
+            check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+                  f"{cfg.name}: non-finite {what} logits")
+
+        def serve():
+            """encode (for the encoder-decoder), prefill, greedy decode;
+            returns the tokens, the ms of each part and the launches after
+            each."""
+            ms, seen = {}, {}
+            kops.reset_launch_counts()
+            with torch.inference_mode():
+                ctx = front
+                if cfg.encoder_layers:
+                    ctx, ms["encode"] = timed(encode, model,
+                                              front.to(torch.bfloat16))
+                seen["encode"] = dict(kops.launch_counts)
+                (logits, caches), ms["prefill"] = timed(prefill, model, toks,
+                                                        ctx)
+                seen["prefill"] = dict(kops.launch_counts)
+                finite(logits, "prefill")
+                nxt = greedy_sample(logits)
+                gen = [nxt]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for step in range(CTX_DECODE_STEPS):
+                    pos = torch.full((CTX_BATCH,), CTX_PROMPT + step,
+                                     dtype=torch.int32, device=dev)
+                    logits, caches = decode(model, nxt[:, None], pos,
+                                            caches, ctx)
+                    finite(logits, "decode")
+                    nxt = greedy_sample(logits)
+                    gen.append(nxt)
+                torch.cuda.synchronize()
+                ms["decode_per_step"] = (time.perf_counter() - t) * 1e3 \
+                    / CTX_DECODE_STEPS
+                seen["decode"] = dict(kops.launch_counts)
+            return torch.stack(gen, 1).cpu(), ms, seen
+
+        cold, _, _ = serve()                 # first use of these shapes
+        tokens, ms, seen = serve()
+        check(torch.equal(tokens, cold), f"{cfg.name}: the warm run "
+              f"generated other tokens")
+        check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+              f"{cfg.name}: tokens outside the vocabulary")
+        got = {"encode": seen["encode"]["flash_attention"],
+               "prefill": seen["prefill"]["flash_attention"]
+               - seen["encode"]["flash_attention"],
+               "decode": seen["decode"]["flash_attention"]
+               - seen["prefill"]["flash_attention"]}
+        check(got == want, f"{cfg.name}: flash_attention launched {got}, "
+              f"expected {want}")
+        launches = seen["decode"]
+        r = out[arch] = {
+            "n_layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+            "d_model": cfg.d_model, "weights_gb": weights_gb,
+            "init_s": init_s, "ctx_rows": T, "ms": ms,
+            "flash_launches_by_part": got, "launches": launches,
+            # a decode step reads every weight once
+            "decode_bound_ms": weights_gb * 1e9 / PEAK_HBM_BYTES_PER_S * 1e3,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9}
+        enc = f"encode of {T} frames {ms['encode']:.2f} ms, " \
+            if cfg.encoder_layers else ""
+        _phase(24, "serve with context", f"{cfg.name} full width and depth "
+               f"({cfg.n_layers} layers"
+               + (f" + {cfg.encoder_layers} encoder layers"
+                  if cfg.encoder_layers else
+                  f", {kinds.count('cross_attn')} cross-attention") +
+               f", d_model {cfg.d_model}, {weights_gb:.2f} GB bf16 weights, "
+               f"built in {init_s:.2f} s) on {dev}, context of {T} rows: "
+               f"{enc}prefill of {CTX_BATCH} x {CTX_PROMPT} "
+               f"{ms['prefill']:.2f} ms, {CTX_DECODE_STEPS} greedy decode "
+               f"steps at "
+               f"{ms['decode_per_step']:.2f} ms (bound "
+               f"{r['decode_bound_ms']:.2f} ms: the weights at "
+               f"{PEAK_HBM_BYTES_PER_S:.3g} B/s); the same tokens cold and "
+               f"warm; flash_attention launches {got} (expected); max "
+               f"memory allocated {r['max_memory_allocated_gb']:.2f} GB")
+        del model, front, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _context_phases(torch, np, dev, record):
+    """Phases 23-25, the configs that need MLA, a context or the encoder;
+    returns the kernel lines of the flash kernels' non-causal forms."""
+    from repro_torch.models.registry import get_config
+
+    mla = get_config(MLA_ARCH)
+    check(mla.mla and mla.n_layers == 27 and mla.first_k_dense == 1
+          and (mla.n_experts, mla.top_k, mla.n_shared_experts) == (64, 6, 2),
+          f"{mla.name}: not the published deepseek-v2-lite")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # MLA's products are einsums, and no layer scans: no kernel launches
+    record["serve_mla"] = _serve_phase(
+        torch, np, dev, 23, mla,
+        lambda waves: {"flash_attention": 0, "ssm_scan": 0})
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["serve_context"] = _context_serve_phase(torch, np, dev)
+
+    # ---- 25 (a): the reduced configs, card against CPU, layer by layer ---
+    rng = np.random.default_rng(25)
+    worst = record["context_card_vs_cpu"] = {
+        arch: _layers_card_vs_cpu(torch, np, dev, get_config(arch).reduced(),
+                                  rng, rows)
+        for arch, rows in ((MLA_ARCH, 0), (VISION_ARCH, CTX_PARITY_ROWS),
+                           (AUDIO_ARCH, CTX_PARITY_ROWS))}
+    _phase("25a", "context card vs CPU", "; ".join(
+        f"{a} (reduced, {get_config(a).reduced().n_layers} layers"
+        f"{', context of %d rows' % CTX_PARITY_ROWS if a != MLA_ARCH else ''}"
+        f"): max abs err {w['layers']:.4g} over layer outputs, "
+        f"{w['logits']:.4g} over last-position logits" for a, w in
+        worst.items()) + f"; same weights on cpu and {dev}, each card layer "
+        f"fed the CPU layer's input (the encoder's too) and context, prefill "
+        f"of 2 x 128 and {PARITY_DECODE_STEPS} decode steps (limit {LM_TOL} "
+        f"rel + abs)")
+    # ---- 25 (b): one training step's loss and gradients ------------------
+    record["context_train_card_vs_cpu"] = _train_card_vs_cpu_phase(
+        torch, np, dev, "25b", (AUDIO_ARCH, VISION_ARCH))
+    # ---- 25 (c): seamless-m4t whole, trained -----------------------------
+    enc = get_config(AUDIO_ARCH)
+    check(enc.encoder_layers == 12 and enc.n_layers == 12
+          and enc.d_model == 1024, f"{enc.name}: not seamless-m4t-medium")
+    # per step: the encoder once (not rematerialised, as in the
+    # reference), each decoder layer's self-attention and xattn twice
+    # (the forward and its rematerialisation); each backward once
+    dec = enc.n_layers * 2
+    record["train_encoder"] = _train_phase(
+        torch, np, dev, "25c", "train encoder-decoder", enc,
+        ENC_TRAIN_BATCH, ENC_TRAIN_SEQ, ENC_TRAIN_STEPS, ENC_TRAIN_LR,
+        {"flash_attention": enc.encoder_layers + 2 * dec,
+         "flash_attention_bwd": enc.encoder_layers + dec},
+        f" + {enc.encoder_layers} encoder layers over "
+        f"{enc.num_frontend_tokens} frames")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    served = record["serve_context"]
+    fwd, bwd = record["lm_kernels"], record["lm_bwd_kernels"]
+    lines = [
+        {"name": f"flash_attention@{tag}", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:73",
+         "launches": served[arch]["launches"]["flash_attention"],
+         **{k: fwd[f"flash_attention@{tag}"][k] for k in keys}}
+        for tag, arch in (("cross", VISION_ARCH), ("encoder", AUDIO_ARCH))]
+    lines += [
+        {"name": f"flash_attention_bwd@{tag}", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/models/layers.py:140",
+         "launches": record["train_encoder"]["launches"][
+             "flash_attention_bwd"],
+         **{k: bwd[f"flash_attention_bwd@{tag}"][k] for k in keys}}
+        for tag in ("encoder", "cross")]
+    return lines
 
 
 def main(argv=None) -> int:
@@ -2973,6 +3340,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels += _train_phases(torch, np, dev, record, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += _context_phases(torch, np, dev, record)
 
     record["total_s"] = time.perf_counter() - t_start
     if args.out:

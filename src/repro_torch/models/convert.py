@@ -7,12 +7,15 @@ The copy is bitwise.  A JAX bf16 array turns into a numpy array of the
 which this package does not import: such an array is recognised by its
 dtype's name, read as ``uint16`` bits and viewed as ``torch.bfloat16``.
 
-Layer ``i = r * len(pattern) + j`` of the port takes row ``r`` of every
-leaf of ``tree["blocks"][j]`` (the reference stacks the repeats of each
-pattern position on a leading axis).  ``opt_state_from_jax`` applies the
-same mapping to the reference's AdamW state, whose ``mu`` tree holds, at
-each parameter's path, ``{"m", "v"}`` (float32) or their int8 form
-``{"q", "scale"}``.
+The reference's ``prefix`` list (the ``first_k_dense`` layers, not
+stacked) gives the port's first layers; then layer
+``first_k_dense + r * len(pattern) + j`` takes row ``r`` of every leaf
+of ``tree["blocks"][j]`` (the reference stacks the repeats of each
+pattern position on a leading axis), and encoder layer ``i`` row ``i``
+of ``tree["encoder"]``.  ``opt_state_from_jax`` applies the same mapping
+to the reference's AdamW state, whose ``mu`` tree holds, at each
+parameter's path, ``{"m", "v"}`` (float32) or their int8 form ``{"q",
+"scale"}``.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ def to_torch(a) -> torch.Tensor:
 
 def layer_index(cfg: ModelConfig, j: int, r: int) -> int:
     """The port's layer for pattern position ``j`` of repeat ``r``."""
-    return r * len(cfg.pattern()) + j
+    return cfg.first_k_dense + r * len(cfg.pattern()) + j
 
 
 def _leaves(tree: Any, prefix: str,
@@ -63,15 +66,21 @@ def _by_port_name(cfg: ModelConfig, tree: Dict[str, Any], names,
     """The reference tree's leaves keyed by the port's parameter names;
     raises unless they are exactly ``names``."""
     src: Dict[str, Any] = {}
-    for key in ("embed", "final_norm", "lm_head"):
+    top = ("embed", "final_norm", "lm_head", "enc_final_norm")
+    for key in top:
         if key in tree:
             src.update(_leaves(tree[key], key, is_leaf))
+    for j, layer in enumerate(tree.get("prefix", [])):
+        src.update(_leaves(layer, f"layers.{j}", is_leaf))
     for j, block in enumerate(tree["blocks"]):
         for name, leaf in _leaves(block, "", is_leaf):
             for r in range(cfg.n_repeats):
                 src[f"layers.{layer_index(cfg, j, r)}.{name}"] = \
                     _row(leaf, r)
-    extra = set(tree) - {"embed", "final_norm", "lm_head", "blocks"}
+    for name, leaf in _leaves(tree.get("encoder", {}), "", is_leaf):
+        for i in range(cfg.encoder_layers):
+            src[f"encoder.{i}.{name}"] = _row(leaf, i)
+    extra = set(tree) - set(top) - {"blocks", "prefix", "encoder"}
     if extra or set(src) != set(names):
         raise ValueError(
             f"param tree and model differ: tree only "

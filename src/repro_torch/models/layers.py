@@ -9,11 +9,13 @@ uninitialised for ``models.convert`` to fill.  Parameter names follow the
 keys of the JAX param tree (``attn.q.w``, ``mamba.a_log``, ...), and
 dense weights keep the JAX layout ``(d_in, d_out)``: ``y = x @ w``.
 
-Two hand-written kernels sit on this path (``kernels.ops``): the causal
-self-attention of a whole prompt goes through ``flash_attention`` and the
-Mamba2 chunked scan of a whole prompt through ``ssm_scan``; under
-autograd both go through their backward kernels too.  The one-token
-decode steps stay plain PyTorch, as in the reference.  Parameters are
+Two hand-written kernels sit on this path (``kernels.ops``): the
+attention of a whole sequence goes through ``flash_attention`` (causal
+self-attention, and non-causal cross-attention over a context of any
+length) and the Mamba2 chunked scan of a whole prompt through
+``ssm_scan``; under autograd both go through their backward kernels too.
+The one-token decode steps stay plain PyTorch, as in the reference, and
+so does MLA, whose scores the reference takes by einsum.  Parameters are
 trainable; the serving steps run under ``torch.inference_mode()``.  Caches are dicts of
 tensors that the layers update in place (the reference returns new ones).
 """
@@ -31,8 +33,8 @@ from ..launch import tuning
 from ..numerics import einsum, gelu_tanh, silu
 from .config import ModelConfig
 
-__all__ = ["DTYPE", "Dense", "Norm", "norm", "rope", "Attention", "FFN",
-           "MoE", "Mamba2", "ssd_scan_ref"]
+__all__ = ["DTYPE", "Dense", "Norm", "norm", "rope", "Attention", "MLA",
+           "FFN", "MoE", "Mamba2", "ssd_scan_ref"]
 
 DTYPE = torch.bfloat16
 Cache = Dict[str, torch.Tensor]
@@ -109,7 +111,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # =============================================================================
-# GQA / MQA / MHA causal self-attention with an optional KV cache
+# GQA / MQA / MHA self-attention with an optional KV cache, and
+# cross-attention
 # =============================================================================
 
 # queries above this many, in multiples of it, take the reference's blocked
@@ -147,20 +150,32 @@ def _sdpa_direct(q, k, v, causal: bool, q_pos=None, kv_len=None):
     return out.reshape(B, S, H * hd)
 
 
-def _causal_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                  ) -> torch.Tensor:
-    """Causal attention through the flash kernel.  q: (B,S,H,hd), k/v:
-    (B,T,Hkv,hd) with T >= S: query i sits at position T - S + i and sees
-    the keys up to it (a whole prompt when T = S).  The reference groups
-    query heads as ``q.reshape(B, S, Hkv, g, hd)``, so query head h reads
-    kv head h // g: ``repeat_interleave``, not ``repeat``."""
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+    """Attention of whole sequences through the flash kernel.  q:
+    (B,S,H,hd), k/v: (B,T,Hkv,hd).  Causal (T >= S): query i sits at
+    position T - S + i and sees the keys up to it (a whole prompt when
+    T = S); otherwise every query sees all T keys (cross-attention and
+    the encoder, any T).  The reference groups query heads as
+    ``q.reshape(B, S, Hkv, g, hd)``, so query head h reads kv head
+    h // g: ``repeat_interleave``, not ``repeat``."""
     B, S, H, hd = q.shape
     g = H // k.shape[2]
     qh = q.permute(0, 2, 1, 3).contiguous()
     kh = k.repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
     vh = v.repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
-    out = kops.flash_attention(qh, kh, vh, causal=True)      # (B,H,S,hd)
+    out = kops.flash_attention(qh, kh, vh, causal=causal)    # (B,H,S,hd)
     return out.permute(0, 2, 1, 3).reshape(B, S, H * hd)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """Attention without a cache: a whole sequence (S > 1) through the
+    kernel, one token through ``_sdpa_direct`` (the reference's ``_sdpa``
+    takes its direct path there too)."""
+    if q.shape[1] > 1:
+        return _flash(q, k, v, causal)
+    return _sdpa_direct(q, k, v, causal)
 
 
 class Attention(nn.Module):
@@ -177,8 +192,18 @@ class Attention(nn.Module):
         self.o = Dense(h * hd, d, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: Optional[Cache] = None):
-        """Causal self-attention.  Returns (out, cache).
+                cache: Optional[Cache] = None,
+                cross_ctx: Optional[torch.Tensor] = None):
+        """Causal self-attention, or cross-attention over ``cross_ctx``
+        (B, T, d_model).  Returns (out, cache).
+
+        With a context, k and v come from its T rows without rope and
+        without a cache, and every query attends over all of them
+        (non-causal; ``cache`` is ignored and None returned, as in the
+        reference).  Without a cache (training, the encoder-free forward,
+        and a ``cross_attn`` layer called without a context) the S new
+        tokens attend causally to each other only.  Both go through
+        ``_attend``.
 
         ``cache`` = {"k": (B,T,Hkv,hd), "v": ..., "len": (B,)}.  The S new
         tokens' k, v are written at row 0's ``len`` for every row (clamped
@@ -198,17 +223,22 @@ class Attention(nn.Module):
         B, S, _ = x.shape
         h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         q = self.q(x).reshape(B, S, h, hd)
+        if cross_ctx is not None:
+            T = cross_ctx.shape[1]
+            k = self.k(cross_ctx).reshape(B, T, kv, hd)
+            v = self.v(cross_ctx).reshape(B, T, kv, hd)
+            return self.o(_attend(q, k, v, causal=False)), None
         k = self.k(x).reshape(B, S, kv, hd)
         v = self.v(x).reshape(B, S, kv, hd)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         if cache is None:
-            return self.o(_causal_flash(q, k, v)), None
+            return self.o(_attend(q, k, v, causal=True)), None
         if S > 1 and not bool((cache["len"] != 0).any()):
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
             cache["len"] += S
-            return self.o(_causal_flash(q, k, v)), cache
+            return self.o(_flash(q, k, v, causal=True)), cache
         T = cache["k"].shape[1]
         # the reference's dynamic_update_slice clamps the start into range
         start = cache["len"][0].clamp(0, T - S)
@@ -223,11 +253,79 @@ class Attention(nn.Module):
             # and every row's queries at the rows written
             if int(start) == end - S and bool((cache["len"] == end).all()) \
                     and bool((positions == rows).all()):
-                out = _causal_flash(q, cache["k"][:, :end],
-                                    cache["v"][:, :end])
+                out = _flash(q, cache["k"][:, :end], cache["v"][:, :end],
+                             causal=True)
                 return self.o(out), cache
         out = _sdpa_direct(q, cache["k"], cache["v"], causal=True,
                            q_pos=positions, kv_len=cache["len"])
+        return self.o(out), cache
+
+
+# =============================================================================
+# MLA: multi-head latent attention (DeepSeek-V2), low-rank KV cache
+# =============================================================================
+
+class MLA(nn.Module):
+    """The reference's ``init_mla`` / ``mla_attention``.  The cache keeps
+    only the latent ``c_kv`` (rank r) and the shared rope key (dr) of each
+    token; ``ukv`` decompresses the whole cache into the per-head no-rope
+    keys and the values on every call.  The products are einsums, as in
+    the reference: no kernel (its qk head dim, dn + dr = 192, is not one
+    of the flash kernel's)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator):
+        super().__init__()
+        d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        self.cfg = cfg
+        self.q = Dense(d, h * (dn + dr), device=device, generator=generator)
+        self.dkv = Dense(d, r, device=device, generator=generator)
+        self.kr = Dense(d, dr, device=device, generator=generator)
+        self.ukv = Dense(r, h * (dn + dv), device=device, generator=generator)
+        self.o = Dense(h * dv, d, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: Optional[Cache] = None):
+        """Returns (out, cache).  ``cache`` = {"ckv": (B,T,r), "kr":
+        (B,T,dr), "len": (B,)}: the S new tokens are written at row 0's
+        ``len`` for every row (clamped into range, as the reference's
+        ``dynamic_update_slice``), ``len`` rises by S, and the queries
+        attend over the whole cache, masked to ``tpos <= position`` and
+        ``tpos < len``.  Without a cache they attend over the S new
+        tokens, masked to ``tpos <= position``.  The two score einsums
+        each round to the activations' dtype before they are widened to
+        float32 and added; hidden scores are -1e30."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        h = cfg.n_heads
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        q = self.q(x).reshape(B, S, h, dn + dr)
+        qn, qr = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+        ckv = self.dkv(x)                                          # (B,S,r)
+        kr = rope(self.kr(x)[:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0]                         # (B,S,dr)
+        kv_len = None
+        if cache is not None:
+            T = cache["ckv"].shape[1]
+            start = cache["len"][0].clamp(0, T - S)
+            rows = start + torch.arange(S, device=x.device)
+            cache["ckv"].index_copy_(1, rows, ckv.to(cache["ckv"].dtype))
+            cache["kr"].index_copy_(1, rows, kr.to(cache["kr"].dtype))
+            cache["len"] += S
+            ckv, kr, kv_len = cache["ckv"], cache["kr"], cache["len"]
+        T = ckv.shape[1]
+        kv = self.ukv(ckv).reshape(B, T, h, dn + dv)
+        kn, v = kv[..., :dn], kv[..., dn:]
+        sc = einsum("bshd,bthd->bhst", qn, kn).float()
+        sc = sc + einsum("bshd,btd->bhst", qr, kr).float()
+        sc = sc / math.sqrt(dn + dr)
+        tpos = torch.arange(T, device=x.device)
+        mask = tpos[None, None, :] <= positions[:, :, None]       # (B,S,T)
+        if kv_len is not None:
+            mask = mask & (tpos[None, None, :] < kv_len[:, None, None])
+        sc = sc.masked_fill(~mask[:, None, :, :], -1e30)
+        w = torch.softmax(sc, dim=-1).to(x.dtype)
+        out = einsum("bhst,bthd->bshd", w, v).reshape(B, S, h * dv)
         return self.o(out), cache
 
 

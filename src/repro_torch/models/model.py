@@ -1,22 +1,25 @@
-"""Model assembly on PyTorch: the parts of ``repro/models/model.py`` on
-the serving and training paths.
+"""Model assembly on PyTorch: a port of ``repro/models/model.py``.
 
-The reference scans over ``n_repeats`` periods of the config's layer
-pattern with stacked params; the port unrolls them into one
-``nn.ModuleList`` of ``n_layers`` blocks, where layer
-``i = r * len(pattern) + j`` holds the reference's
-``params["blocks"][j][r]``.  Caches are one dict per layer.
+The reference runs the ``first_k_dense`` prefix layers unrolled, then
+scans over ``n_repeats`` periods of the config's layer pattern with
+stacked params; the port unrolls both into one ``nn.ModuleList`` of
+``n_layers`` blocks: the prefix first, then layer
+``first_k_dense + r * len(pattern) + j`` holding the reference's
+``params["blocks"][j][r]``.  An encoder-decoder's encoder is a second
+list, ``encoder``, of ``encoder_layers`` blocks, then ``enc_final_norm``.
+Caches are one dict per layer (None for a cross-attention layer).
 
 Entry points:
-  Model(cfg, device=..., generator=...)   -> the weights (bf16)
-  forward(model, tokens)                  -> logits (prefill, every position)
-  loss_fn(model, batch, remat=True)       -> next-token cross-entropy
-  init_cache(cfg, batch, max_len, device) -> per-layer decode caches
-  decode_step(model, tokens, pos, caches) -> (logits, caches)  [serve_step]
+  Model(cfg, device=..., generator=...)        -> the weights (bf16)
+  encode(model, frames)                        -> the encoder's output
+  forward(model, tokens, ctx=None)             -> logits (every position)
+  loss_fn(model, batch, remat=True)            -> next-token cross-entropy
+  init_cache(cfg, batch, max_len, device)      -> per-layer decode caches
+  decode_step(model, tokens, pos, caches, ctx) -> (logits, caches)
 
-Configs that need what this slice of the port does not carry (MLA,
-cross-attention, an encoder, a modality frontend, an unscanned dense
-prefix) raise ``NotImplementedError``.
+``ctx`` is the context that cross-attention reads, (B, T, d_model): the
+vision embeddings of a ``frontend == "vision"`` model's ``cross_attn``
+layers, or the encoder's output for an encoder-decoder's decoder.
 """
 from __future__ import annotations
 
@@ -31,29 +34,18 @@ from ..device import resolve_device
 from . import layers as L
 from .config import ModelConfig
 
-__all__ = ["Block", "Model", "check_supported", "forward", "loss_fn",
+__all__ = ["Block", "EncoderBlock", "Model", "encode", "forward", "loss_fn",
            "init_cache", "decode_step"]
 
 LayerCache = Optional[L.Cache]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    missing = [what for what, needed in (
-        ("MLA attention", cfg.mla),
-        ("cross-attention mixers", cfg.cross_attn_every),
-        ("an encoder", cfg.encoder_layers),
-        (f"the {cfg.frontend} frontend", cfg.frontend != "none"),
-        ("the unscanned dense prefix", cfg.first_k_dense)) if needed]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(missing)}, which the port does "
-            f"not carry yet")
-
-
 class Block(nn.Module):
-    """One layer: pre-norm mixer (attention or Mamba2), then pre-norm FFN
-    (dense, MoE or none).  ``norm2`` exists even without an FFN, as in the
-    reference's param tree."""
+    """One layer: pre-norm mixer (attention, MLA when ``cfg.mla``,
+    cross-attention or Mamba2); on an encoder-decoder's attention layers,
+    pre-norm cross-attention ``xattn`` over the context when one is given;
+    then pre-norm FFN (dense, MoE or none).  ``norm2`` exists even without
+    an FFN, as in the reference's param tree."""
 
     def __init__(self, cfg: ModelConfig, mixer: str, ffn_kind: str, *,
                  device, generator):
@@ -63,24 +55,58 @@ class Block(nn.Module):
         self.norm2 = L.Norm(cfg.d_model, cfg.norm, device=device)
         if mixer == "mamba":
             self.mamba = L.Mamba2(cfg, device=device, generator=generator)
+        elif cfg.mla and mixer == "attn":
+            self.attn = L.MLA(cfg, device=device, generator=generator)
         else:
             self.attn = L.Attention(cfg, device=device, generator=generator)
         if ffn_kind == "moe":
             self.ffn = L.MoE(cfg, device=device, generator=generator)
         elif ffn_kind == "dense":
             self.ffn = L.FFN(cfg, device=device, generator=generator)
+        self.xattn = None
+        if cfg.encoder_layers and mixer == "attn":
+            self.norm_x = L.Norm(cfg.d_model, cfg.norm, device=device)
+            self.xattn = L.Attention(cfg, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: LayerCache):
+                cache: LayerCache, ctx: Optional[torch.Tensor] = None):
+        """A ``cross_attn`` mixer attends over ``ctx``; called without one
+        it runs, as in the reference, causal self-attention with rope over
+        the new tokens only, with no cache (in a decode step each token
+        attends to itself)."""
         h = self.norm1(x)
         if self.mixer == "mamba":
             y, cache = self.mamba(h, cache)
+        elif self.mixer == "cross_attn":
+            y, _ = self.attn(h, positions, None, cross_ctx=ctx)
         else:
             y, cache = self.attn(h, positions, cache)
         x = x + y
+        if self.xattn is not None and ctx is not None:
+            x = x + self.xattn(self.norm_x(x), positions, None,
+                               cross_ctx=ctx)[0]
         if self.ffn_kind != "none":
             x = x + self.ffn(self.norm2(x))
         return x, cache
+
+
+class EncoderBlock(nn.Module):
+    """One encoder layer (the reference's ``encode`` body): pre-norm
+    attention without rope and without a mask, then pre-norm dense FFN."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator):
+        super().__init__()
+        self.norm1 = L.Norm(cfg.d_model, cfg.norm, device=device)
+        self.attn = L.Attention(cfg, device=device, generator=generator)
+        self.norm2 = L.Norm(cfg.d_model, cfg.norm, device=device)
+        self.ffn = L.FFN(cfg, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.norm1(x)
+        # non-causal attention of the sequence over itself, without rope:
+        # cross-attention with the sequence as its own context
+        x = x + self.attn(h, None, None, cross_ctx=h)[0]
+        return x + self.ffn(self.norm2(x))
 
 
 class Model(nn.Module):
@@ -92,7 +118,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = L._normal((cfg.vocab_padded, cfg.d_model),
@@ -102,7 +127,13 @@ class Model(nn.Module):
             cfg.d_model, cfg.vocab_padded, device=dev, generator=generator)
         self.layers = nn.ModuleList(
             Block(cfg, mk, fk, device=dev, generator=generator)
-            for mk, fk in cfg.pattern() * cfg.n_repeats)
+            for mk, fk in _layer_kinds(cfg))
+        self.encoder = self.enc_final_norm = None
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(
+                EncoderBlock(cfg, device=dev, generator=generator)
+                for _ in range(cfg.encoder_layers))
+            self.enc_final_norm = L.Norm(cfg.d_model, cfg.norm, device=dev)
 
     @property
     def device(self) -> torch.device:
@@ -112,24 +143,32 @@ class Model(nn.Module):
         return self.embed.T if self.lm_head is None else self.lm_head.w
 
 
-def _remat_layer(layer: Block, x: torch.Tensor, positions: torch.Tensor
-                 ) -> torch.Tensor:
-    return layer(x, positions, None)[0]
+def _layer_kinds(cfg: ModelConfig):
+    """(mixer, ffn) of every layer in the port's order: the prefix, then
+    ``n_repeats`` periods of the pattern."""
+    return cfg.prefix_pattern() + cfg.pattern() * cfg.n_repeats
+
+
+def _remat_layer(layer: Block, x: torch.Tensor, positions: torch.Tensor,
+                 ctx: Optional[torch.Tensor]) -> torch.Tensor:
+    return layer(x, positions, None, ctx)[0]
 
 
 def _run_blocks(model: Model, x: torch.Tensor, positions: torch.Tensor,
+                ctx: Optional[torch.Tensor],
                 caches: Optional[List[LayerCache]], remat: bool = False):
     """``remat`` (training, no caches) rematerialises each block in the
     backward, as ``jax.checkpoint`` around each layer does in the
     reference: the block's forward, its kernels included, runs again."""
     if remat and caches is None:
         for layer in model.layers:
-            x = checkpoint(_remat_layer, layer, x, positions,
+            x = checkpoint(_remat_layer, layer, x, positions, ctx,
                            use_reentrant=False)
         return x, None
     new = []
     for i, layer in enumerate(model.layers):
-        x, c = layer(x, positions, None if caches is None else caches[i])
+        x, c = layer(x, positions, None if caches is None else caches[i],
+                     ctx)
         new.append(c)
     return x, (new if caches is not None else None)
 
@@ -147,20 +186,43 @@ def _embed(model: Model, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens.long()]
 
 
-def _backbone(model: Model, tokens: torch.Tensor, remat: bool = False
+def _context(model: Model, ctx: Optional[torch.Tensor]
+             ) -> Optional[torch.Tensor]:
+    """The context in the model's dtype (the reference casts it to its
+    activation dtype, bf16)."""
+    return None if ctx is None else ctx.to(model.embed.dtype)
+
+
+def _backbone(model: Model, tokens: torch.Tensor,
+              ctx: Optional[torch.Tensor] = None, remat: bool = False
               ) -> torch.Tensor:
     B, S = tokens.shape
     x = _embed(model, tokens)
     positions = torch.arange(S, device=x.device).expand(B, S)
-    x, _ = _run_blocks(model, x, positions, None, remat=remat)
+    x, _ = _run_blocks(model, x, positions, _context(model, ctx), None,
+                       remat=remat)
     return L.norm(model.final_norm.scale, x, model.cfg.norm)
 
 
-def forward(model: Model, tokens: torch.Tensor, remat: bool = False
+def encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder stack over precomputed frontend embeddings (B, S,
+    d_model), in their dtype, then ``enc_final_norm``: non-causal
+    attention without rope, through the flash kernel on whole
+    sequences."""
+    x = frames
+    for layer in model.encoder:
+        x = layer(x)
+    return L.norm(model.enc_final_norm.scale, x, model.cfg.norm)
+
+
+def forward(model: Model, tokens: torch.Tensor,
+            ctx: Optional[torch.Tensor] = None, remat: bool = False
             ) -> torch.Tensor:
     """Training / prefill forward over every position.  tokens (B, S) ->
-    logits (B, S, vocab_padded), pad columns at -1e30."""
-    x = _backbone(model, tokens, remat)
+    logits (B, S, vocab_padded), pad columns at -1e30.  ``ctx``: the
+    vision context or the encoder's output (B, T, d_model); without it
+    an encoder-decoder's ``xattn`` is skipped, as in the reference."""
+    x = _backbone(model, tokens, ctx, remat)
     return _mask_pad_logits(model.cfg,
                             L.einsum("bsd,dv->bsv", x, model.head()))
 
@@ -200,13 +262,22 @@ def _chunked_ce(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor,
 def loss_fn(model: Model, batch: Dict[str, torch.Tensor], remat: bool = True
             ) -> torch.Tensor:
     """Next-token cross-entropy (float32 scalar).  batch: tokens (B, S),
-    labels (B, S).  (Frontend and encoder contexts are not ported.)"""
-    x = _backbone(model, batch["tokens"], remat=remat)
-    return _chunked_ce(model.cfg, x, model.head(), batch["labels"])
+    labels (B, S); an encoder-decoder's ``frames`` (B, S_frames, d_model),
+    which the encoder turns into the context (not rematerialised, as in
+    the reference), or a vision model's ``vision_embeds`` (B, T,
+    d_model), the context itself; each cast to the model's dtype."""
+    cfg = model.cfg
+    ctx = None
+    if cfg.encoder_layers:
+        ctx = encode(model, _context(model, batch["frames"]))
+    elif cfg.frontend == "vision":
+        ctx = batch["vision_embeds"]
+    x = _backbone(model, batch["tokens"], ctx, remat=remat)
+    return _chunked_ce(cfg, x, model.head(), batch["labels"])
 
 
 def _init_layer_cache(cfg: ModelConfig, mixer: str, B: int, T: int,
-                      device) -> L.Cache:
+                      device) -> LayerCache:
     if mixer == "mamba":
         return {"conv": torch.zeros((B, cfg.ssm_conv_width,
                                      cfg.d_inner + 2 * cfg.ssm_state),
@@ -214,6 +285,14 @@ def _init_layer_cache(cfg: ModelConfig, mixer: str, B: int, T: int,
                 "ssm": torch.zeros((B, cfg.ssm_heads, cfg.ssm_head_dim,
                                     cfg.ssm_state), dtype=torch.float32,
                                    device=device)}
+    if mixer == "cross_attn":
+        return None
+    if cfg.mla:
+        return {"ckv": torch.zeros((B, T, cfg.kv_lora_rank), dtype=L.DTYPE,
+                                   device=device),
+                "kr": torch.zeros((B, T, cfg.qk_rope_dim), dtype=L.DTYPE,
+                                  device=device),
+                "len": torch.zeros((B,), dtype=torch.int32, device=device)}
     hd = cfg.head_dim
     return {"k": torch.zeros((B, T, cfg.n_kv_heads, hd), dtype=L.DTYPE,
                              device=device),
@@ -223,24 +302,27 @@ def _init_layer_cache(cfg: ModelConfig, mixer: str, B: int, T: int,
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None
-               ) -> List[L.Cache]:
-    """One cache per layer, in layer order."""
-    check_supported(cfg)
+               ) -> List[LayerCache]:
+    """One cache per layer, in layer order: MLA's latent cache, the KV
+    cache of attention, Mamba2's (conv, ssm) state, and None for a
+    cross-attention layer."""
     dev = resolve_device(device)
     return [_init_layer_cache(cfg, mk, B, max_len, dev)
-            for mk, _ in cfg.pattern() * cfg.n_repeats]
+            for mk, _ in _layer_kinds(cfg)]
 
 
 def decode_step(model: Model, tokens: torch.Tensor, pos: torch.Tensor,
-                caches: List[L.Cache]):
-    """One-token decode against the KV/SSM caches, which it updates in
-    place.  tokens: (B, 1); pos: (B,) absolute positions.  Returns
-    (logits (B, 1, vocab_padded), caches)."""
+                caches: List[LayerCache],
+                ctx: Optional[torch.Tensor] = None):
+    """One-token decode against the caches, which it updates in place.
+    tokens: (B, 1); pos: (B,) absolute positions; ``ctx`` as in
+    ``forward``.  Returns (logits (B, 1, vocab_padded), caches)."""
     if tokens.dim() != 2 or tokens.shape[1] != 1:
         raise ValueError(f"decode_step takes (B, 1) tokens, got "
                          f"{tuple(tokens.shape)}")
     x = _embed(model, tokens)
-    x, caches = _run_blocks(model, x, pos[:, None], caches)
+    x, caches = _run_blocks(model, x, pos[:, None], _context(model, ctx),
+                            caches)
     x = L.norm(model.final_norm.scale, x, model.cfg.norm)
     logits = L.einsum("bsd,dv->bsv", x, model.head())
     return _mask_pad_logits(model.cfg, logits), caches

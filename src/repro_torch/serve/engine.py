@@ -9,7 +9,8 @@ freed slot rows -- then decodes the full slot array one token at a time,
 retiring finished sequences individually so their slots are refilled on
 the next iteration instead of waiting for the whole batch to drain.
 Decode always runs at the full ``(max_batch, 1)`` shape.  The engine runs
-on the model's device.
+on the model's device.  As the reference's, it passes the steps no
+context, so a ``cross_attn`` layer serves its context-free form.
 """
 from __future__ import annotations
 
@@ -96,6 +97,8 @@ class ServeEngine:
                                         self.max_len, dev)
                 sel = torch.tensor(idx, dtype=torch.long, device=dev)
                 for whole, part in zip(caches, fresh):
+                    if whole is None:   # a cross-attention layer: no cache
+                        continue
                     for key, t in whole.items():
                         t.index_copy_(0, sel, part[key])
                 nxt.index_copy_(0, sel, first)

@@ -5,6 +5,9 @@ return last-token logits + caches.  ``decode_step`` (serve_step): one new
 token against the caches.  The steps take the model where the reference
 takes its param tree, and run under ``torch.inference_mode()`` (the
 model's parameters are trainable; serving records no autograd graph).
+Both take the reference's optional ``ctx`` (B, T, d_model), the context
+that cross-attention reads: a vision model's image embeddings or an
+encoder-decoder's ``encode`` output.
 """
 from __future__ import annotations
 
@@ -12,20 +15,21 @@ import torch
 
 from ..models import layers as L
 from ..models.config import ModelConfig
-from ..models.model import (Model, _embed, _mask_pad_logits, _run_blocks,
-                            decode_step as _decode, init_cache)
+from ..models.model import (Model, _context, _embed, _mask_pad_logits,
+                            _run_blocks, decode_step as _decode, init_cache)
 
 __all__ = ["make_prefill_step", "make_decode_step", "greedy_sample"]
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
     @torch.inference_mode()
-    def prefill_step(model: Model, tokens: torch.Tensor):
+    def prefill_step(model: Model, tokens: torch.Tensor, ctx=None):
         B, S = tokens.shape
         caches = init_cache(cfg, B, max_len, model.device)
         x = _embed(model, tokens)
         positions = torch.arange(S, device=x.device).expand(B, S)
-        x, caches = _run_blocks(model, x, positions, caches)
+        x, caches = _run_blocks(model, x, positions, _context(model, ctx),
+                                caches)
         x = L.norm(model.final_norm.scale, x[:, -1:], cfg.norm)
         logits = L.einsum("bsd,dv->bsv", x, model.head())
         return _mask_pad_logits(cfg, logits), caches
@@ -36,8 +40,8 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
 def make_decode_step(cfg: ModelConfig):
     @torch.inference_mode()
     def decode_step(model: Model, tokens: torch.Tensor, pos: torch.Tensor,
-                    caches):
-        return _decode(model, tokens, pos, caches)
+                    caches, ctx=None):
+        return _decode(model, tokens, pos, caches, ctx)
 
     return decode_step
 

@@ -58,6 +58,9 @@ def train_loop(cfg: ModelConfig, loop: TrainLoopConfig,
     dev = resolve_device(device)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=loop.seq_len,
                           global_batch=loop.global_batch, seed=loop.seed,
+                          frontend="audio" if cfg.encoder_layers
+                          else cfg.frontend,
+                          num_frontend_tokens=cfg.num_frontend_tokens,
                           d_model=cfg.d_model)
     pipe = SyntheticTokenPipeline(data_cfg)
     ckpt = CheckpointManager(loop.ckpt_dir)

@@ -1,6 +1,8 @@
 """PyTorch port on the card: the hand-written CUDA kernels (``dse_eval``,
 ``flash_attention`` and its backward, ``ssm_scan`` and its backward,
-``horner``) against their plain versions, refused launches, the batched
+``horner``) against their plain versions, the MLA and cross-attention
+layers and the encoder on the card against the CPU, refused launches, the
+batched
 engine and the plan-table executor on ``cuda`` against the CPU, the
 python-mapper engine bit for bit the batched backend on ``cuda``, the
 device search's memo, genetics step, device configs and Eq. 8 on
@@ -498,6 +500,117 @@ def test_cuda_attention_long_step_on_a_filled_cache(cuda):
                                    caches["cpu"][key].float(), rtol=2e-2,
                                    atol=2e-2)
     assert caches["cuda"]["len"].tolist() == [S0 + step] * B
+
+
+def _card_and_cpu(cuda, module):
+    """``module`` (on the CPU) and a copy of it on the card."""
+    import copy
+
+    return {"cpu": module, "cuda": copy.deepcopy(module).to(cuda)}
+
+
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_cuda_mla_layer_matches_the_cpu(cuda):
+    """deepseek-v2-lite's MLA layer (reduced) in bf16: a prefill of 24
+    tokens into an empty latent cache of 32 rows, then one-token steps
+    until the last write clamps to the final row.  Outputs and the latent
+    cache are held against the same module on the CPU at 2e-2; MLA is
+    einsum, so the flash kernel never launches."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    mods = _card_and_cpu(cuda, L.MLA(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(0)))
+    B, T = 2, 32
+    rng = np.random.default_rng(6)
+    steps = [(0, 24)] + [(s, 1) for s in range(24, T + 1)]
+    xs = [_bf16(rng, B, n, cfg.d_model) for _, n in steps]
+    outs, caches = {}, {}
+    before = K.launch_counts["flash_attention"]
+    with torch.no_grad():
+        for dev, mod in mods.items():
+            cache = M._init_layer_cache(cfg, "attn", B, T, dev)
+            outs[dev] = []
+            for (s0, n), x in zip(steps, xs):
+                pos = torch.arange(s0, s0 + n, dtype=torch.int32)
+                y, cache = mod(x.to(dev), pos.expand(B, -1).to(dev), cache)
+                outs[dev].append(y)
+            caches[dev] = cache
+    torch.cuda.synchronize()
+    assert K.launch_counts["flash_attention"] == before
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   rtol=2e-2, atol=2e-2)
+    for key in ("ckv", "kr"):
+        torch.testing.assert_close(caches["cuda"][key].float().cpu(),
+                                   caches["cpu"][key].float(), rtol=2e-2,
+                                   atol=2e-2)
+    assert caches["cuda"]["len"].tolist() == [T + 1] * B
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [512, 1])
+def test_cuda_cross_attention_matches_the_cpu(cuda, S):
+    """llama-3.2-vision's cross-attention at its head dim (128) with two
+    query heads per kv head, over 1,601 context rows (the vision tokens;
+    ragged against the kernel's tiles): a prompt of 512 through the
+    non-causal flash kernel, one token through ``_sdpa_direct``, against
+    the same module on the CPU at 2e-2."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_config
+
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-11b").reduced(),
+                              d_head=128, n_kv_heads=2)
+    mods = _card_and_cpu(cuda, L.Attention(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(1)))
+    rng = np.random.default_rng(7)
+    x, ctx = _bf16(rng, 2, S, cfg.d_model), _bf16(rng, 2, 1601, cfg.d_model)
+    pos = torch.arange(S).expand(2, -1)
+    before = K.launch_counts["flash_attention"]
+    with torch.no_grad():
+        outs = {dev: mod(x.to(dev), pos.to(dev), None,
+                         cross_ctx=ctx.to(dev))[0]
+                for dev, mod in mods.items()}
+    torch.cuda.synchronize()
+    assert K.launch_counts["flash_attention"] == before + (S > 1)
+    torch.testing.assert_close(outs["cuda"].float().cpu(),
+                               outs["cpu"].float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_encode_matches_the_cpu(cuda):
+    """seamless-m4t's encoder (reduced, at its head dim 64) over 200 frames
+    in bf16: one non-causal flash launch per encoder layer, the output
+    against the same model on the CPU at 2e-2."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium").reduced(),
+                              d_head=64)
+    host = M.Model(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(2))
+    card = M.Model(cfg, device=cuda, generator=None)
+    card.load_state_dict(host.state_dict())
+    frames = _bf16(np.random.default_rng(8), 2, 200, cfg.d_model)
+    before = K.launch_counts["flash_attention"]
+    with torch.no_grad():
+        want = M.encode(host, frames)
+        got = M.encode(card, frames.to(cuda))
+    torch.cuda.synchronize()
+    assert K.launch_counts["flash_attention"] == before + cfg.encoder_layers
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 @pytest.mark.gpu

@@ -129,7 +129,7 @@ def test_gqa_attention_grads_match_reference():
     jdo, tdo = _pair(rng.normal(size=(2, 64, 64)), jnp.float32)
     want = _vjp(functools.partial(JL._sdpa, causal=True), (jq, jk, jv), jdo)
     ins = [t.clone().requires_grad_() for t in (tq, tk, tv)]
-    got = torch.autograd.grad(TL._causal_flash(*ins), ins, tdo)
+    got = torch.autograd.grad(TL._flash(*ins, causal=True), ins, tdo)
     for name, g, w in zip("qkv", got, want):
         assert g.shape == w.shape
         assert _rel_max(g, w) <= 1e-5, (name, _rel_max(g, w))
