@@ -13,7 +13,7 @@ script exits non-zero without printing a result):
                 ``nvcc`` for ``sm_90a``, one process each, all started
                 together;
 3. kernel    -- dse_eval against its plain PyTorch version on the card,
-                at the main path's shapes (1,024 genomes x the op rows of
+                at the main path's shapes (512 genomes x the op rows of
                 all 20 workloads) and on the no-hostable-tile case: the
                 seconds and the energy bit for bit; times both with CUDA
                 events, the kernel also by torch.profiler's device time
@@ -21,15 +21,15 @@ script exits non-zero without printing a result):
                 and computes its bound;
 4. main path -- ``EvalEngine(workload_names(), EngineConfig(
                 backend="batched", mode="latency"))`` on ``cuda`` scores
-                1,024 random genomes on the 20 workloads (cut from 4,096
-                to 2,048 when phase 21 came and to 1,024 when phase 22
-                came, to keep the run within 900 s), then again (all memo
-                hits);
-5. prefilter -- ``roofline_bounds`` on the same 1,024 x 20 (the kernel's
+                512 random genomes on the 20 workloads (cut from 4,096
+                to 2,048 when phase 21 came, to 1,024 when phase 22 came
+                and to 512 when phases 26-27 came, to keep the run within
+                900 s), then again (all memo hits);
+5. prefilter -- ``roofline_bounds`` on the same 512 x 20 (the kernel's
                 caller).  Phases 4 and 5 are the DSE path: the launch
                 counters are zeroed just before phase 4 and read just
                 after phase 5, and dse_eval must have launched;
-6. throughput-- the engine in throughput mode, 4 workloads x 1,024;
+6. throughput-- the engine in throughput mode, 4 workloads x 512;
 7. card vs CPU -- the same engine on ``cpu`` and on ``cuda`` for 64 genomes
                 x 3 workloads in both modes (ok masks equal, metrics within
                 rel 1e-9), and the port on ``hetero_bls()`` against the
@@ -61,7 +61,10 @@ script exits non-zero without printing a result):
                 cold and once measured.  The counters are zeroed just before
                 the measured run and read just after: each admission wave
                 (W >= 2) launches flash_attention once and ssm_scan once per
-                Mamba2 layer (7 W);
+                Mamba2 layer (7 W); (c) then one (4, 512) prefill of the
+                blocks into empty caches, timed both ways: told they are
+                empty (``prefill_step``'s route) and reading each
+                attention layer's cache lengths back to the host;
 11. serve card vs CPU -- reduced Jamba (16 layers) with the same weights
                 on both devices, layer by layer, for a prefill and 4
                 decode steps, within 2e-2;
@@ -92,7 +95,11 @@ script exits non-zero without printing a result):
                 card): ``train_loop`` for 4 steps of batch 4 x 2,048,
                 remat, float32 moments, one checkpoint at the end (deleted
                 after); flash_attention launches twice and
-                flash_attention_bwd once per layer and step;
+                flash_attention_bwd once per layer and step; (c) then the
+                trained state through ``ElasticMesh.reshard_state`` onto
+                the (1, 1) mesh of an NCCL group of one rank: every
+                parameter and moment bit for bit, plain on the card, and
+                one more step from it with a finite loss;
 16. train card vs CPU -- one training step's loss and gradients of reduced
                 Jamba, mamba2 and starcoder2 with the same weights on both
                 devices, in bf16 and in float32 (Jamba's gradients layer by
@@ -101,10 +108,10 @@ script exits non-zero without printing a result):
 17. exact    -- (runs right after phase 7, with phases 4 and 6 still in
                 memory) ``EvalEngine(backend="exact")`` on ``cuda``, the
                 search that maps and executes each op row in one pass, cold
-                on the first 1,024 of phase 4's genomes x 20 workloads,
+                on phase 4's 512 genomes x 20 workloads,
                 served by one ``DSEService`` with a sqlite store under
                 ``build/`` to an in-process and a TCP tenant that start
-                together and ask for 640 genomes each, 256 in common (one
+                together and ask for 384 genomes each, 256 in common (one
                 coalesced dispatch against the tenants' separate 2), and
                 on the first 256 of phase 6's in throughput mode on a local
                 engine: bit for bit those phases' rows; evaluations/s
@@ -139,7 +146,7 @@ script exits non-zero without printing a result):
                 walk, and evaluations/s of both engines;
 20. scan and link -- (right after phase 19) (a) the default engine,
                 ``EvalEngine(backend="scan")`` (the approximate in-scan
-                mapping), on ``cuda``, cold on the first 1,024 of phase 4's
+                mapping), on ``cuda``, cold on phase 4's 512
                 genomes x 20 workloads and the first 256 of phase 6's in
                 throughput mode: evaluations/s beside phases 4 and 17, and
                 its error against those phases' exact rows (median, 99th
@@ -205,8 +212,8 @@ script exits non-zero without printing a result):
 23. serve MLA -- (after phase 16) deepseek-v2-lite whole (27 layers: the
                 dense-FFN prefix layer and 26 MLA + MoE layers, 64 routed
                 experts top-6 and 2 shared), weights from seed 0, served
-                as phase 10 serves Jamba: flash_attention launches 0
-                times (MLA's products are einsums);
+                as phase 10 serves Jamba (with its (c)): flash_attention
+                launches 0 times (MLA's products are einsums);
 24. serve with context -- llama-3.2-vision (40 layers, 8 of them
                 cross-attention) and seamless-m4t (12 encoder and 12
                 decoder layers) whole, through ``serve/step.py`` with a
@@ -227,6 +234,27 @@ script exits non-zero without printing a result):
                 step (the encoder's 12 and the decoder's 24 twice, the
                 forward and its rematerialisation), flash_attention_bwd
                 36.
+26. sharding -- (after phase 25) the sharding layer on one card: (a)
+                ``make_mesh_for_devices(1)``, a (1, 1) ``DeviceMesh`` over
+                an NCCL group of one rank, and ``ring_allgather_matmul``
+                on it against ``torch.matmul`` of the same operands (one
+                rank: no send); (b) ``EvalEngine(EngineConfig(shard=
+                True))``, batched and exact, on 64 genomes x ``kan`` and
+                ``resnet50_int8``, bit for bit ``shard=False`` (one
+                device: ``candidate_sharding`` is None and
+                ``default_islands(64) == 1``); (c) reduced starcoder2-15b
+                trained 12 steps, once straight through and once with its
+                state passed through ``ElasticMesh.reshard_state`` at step
+                6: the last losses within rtol 1e-6 (the backward kernels
+                add by atomics, so bit for bit is not asked on the card).
+                The process group is destroyed at the end;
+27. dry-run  -- host work, no card: ``launch.dryrun.run_cell`` on
+                granite-20b ``train_4k`` over the (16, 16) fake mesh of
+                256 ranks (flops, bytes and collective bytes a device by
+                kind, peak GiB a device, and ``roofline.analyze``'s three
+                terms at the H100's data-sheet rates), then
+                ``search_mesh(granite-20b, chips=256, global_batch=256,
+                seq_len=4096)``'s top three.
 
 Then one JSON line describing the kernels (times, launches, bounds) and,
 as the last line, ``{"ok": true, "device": {...}}``.  ``--out PATH`` also
@@ -261,16 +289,17 @@ DEVICE = "cuda"
 # phase 4 (and phase 3's shapes): cut from 4,096 to 2,048 so that the run
 # with phase 21 stays under 900 s (phase 4 took 373.9 s at 4,096 on an
 # NVIDIA H100 80GB HBM3 at 700 W; PERF.md), then to 1,024 to make room for
-# phase 22 (215.9-217.1 s at 2,048)
-POPULATION = 1024
-THROUGHPUT_POPULATION = 1024
+# phase 22 (215.9-217.1 s at 2,048), then to 512 for phases 26-27 (the
+# script took 1,037.5-1,074.3 s with 1,024 on slow hosts, phase 4 141.1 s)
+POPULATION = 512
+THROUGHPUT_POPULATION = 512
 PARITY_POPULATION = 64
 THROUGHPUT_WORKLOADS = ["kan", "resnet50_int8", "hyena_1_3b",
                         "llama7b_int4"]
 PARITY_WORKLOADS = ["kan", "resnet50_int8", "hyena_1_3b"]
 # phase 17: the exact engine on the first genomes of phases 4 and 6 (cut
 # to keep the run's time: phase 4 at 4,096 took 240-490 s)
-EXACT_POPULATION, EXACT_THROUGHPUT_POPULATION = 1024, 256
+EXACT_POPULATION, EXACT_THROUGHPUT_POPULATION = 512, 256
 # phase 18: the search frontends on PARITY_WORKLOADS
 SEARCH_SEEDS, SEARCH_SAMPLES, SEARCH_BRACKET = (0, 1), 8, 200.0
 SEARCH_GA = dict(population=32, generations=4, seed_top_k=16, early_stop=4)
@@ -282,8 +311,9 @@ GOLDEN_WORKLOADS = ["resnet50_int8", "vit_b16_fp16", "llama7b_int4",
 # MOSAIC / NVDLA ratios the paper reports in Table 2 (latency, energy, area)
 ORACLE_RESCORE_POPULATION = 16
 # phase 20: the scan engine on the first genomes of phases 4 and 6 (phase
-# 17's cut), and the link tier's exact engine on the first of phase 6's
-SCAN_POPULATION, SCAN_THROUGHPUT_POPULATION = 1024, 256
+# 17's cut; 512 takes as long as 1,024: the scan's cost is per op row),
+# and the link tier's exact engine on the first of phase 6's
+SCAN_POPULATION, SCAN_THROUGHPUT_POPULATION = 512, 256
 LINK_POPULATION = 256
 NVDLA_PAPER_RATIOS = {"nv_small": (1.08, 1.41, 1.77),
                       "nv_full": (1.39, 1.19, 1.50)}
@@ -321,6 +351,7 @@ SERVICE_HILLCLIMB = dict(budget_mm2=200.0, steps=2, neighbors=16, seed=0)
 LM_ARCH = "jamba-v0.1-52b"
 LM_LAYERS = 8
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_REQUESTS = 4, 1024, 8
+PREFILL_ROUTE_REPS = 5      # phases 10 (c) and 23 (c): each way, alternating
 PROMPT_LENS = (128, 256, 384, 512)   # multiples of the SSD chunk (64)
 NEW_TOKENS = (8, 16, 24, 32)
 PARITY_LAYERS = 16                   # reduced Jamba, repeat axis at 2
@@ -381,6 +412,16 @@ TRAIN_PARITY_ARCHS = ("jamba-v0.1-52b", "mamba2-780m", "starcoder2-15b")
 # the reduced configs whose gradients phases 16 and 25 (b) hold layer by
 # layer (their docstring says why)
 LAYER_BY_LAYER = ("jamba", "llama-3.2-vision")
+# phase 26: the sharding layer on one card
+SHARD_WORKLOADS = ["kan", "resnet50_int8"]      # phase 18's two smallest
+SHARD_POPULATION = 64
+RING_SHAPE = (4096, 2048, 2048)                 # x (S, D) @ w (D, F)
+ELASTIC_ARCH = "starcoder2-15b"
+ELASTIC_STEPS, ELASTIC_AT = 12, 6
+ELASTIC_BATCH, ELASTIC_SEQ = 4, 128
+ELASTIC_RTOL = 1e-6     # a resumed run's bar, tests/test_train_substrate.py
+# phase 27: the dry-run's cell and the mesh search's
+DRYRUN_CELL = ("granite-20b", "train_4k")
 # the KAN workload's first layer (src/repro/core/workloads/misc.py): 784 x
 # 512 edge polynomials of degree 8, over a batch of 64
 KAN_ELEMENTS, KAN_DEGREE = 784 * 512 * 64, 8
@@ -404,7 +445,13 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+_T0 = [None]            # the run's start (``main``)
+_ELAPSED = {}           # each phase's last line: seconds since the start
+
+
 def _phase(n, name, text):
+    if _T0[0] is not None:
+        _ELAPSED[f"{n} {name}"] = time.perf_counter() - _T0[0]
     print(f"[{n} {name}] {text}", flush=True)
 
 
@@ -530,14 +577,14 @@ def _trace(torch, run):
 
 def _profile_micro_batch(torch, np, genomes, dev):
     """Trace one engine micro-batch: ``map_and_simulate`` of resnet50_int8
-    on 1,024 genomes."""
+    on phase 4's 512 genomes."""
     from repro_torch.core.compiler.batched_mapper import map_and_simulate
     from repro_torch.core.dse.engine import genomes_to_configs, \
         prepared_workload
     from repro_torch.core.simulator.batched import place_configs
 
     ws = prepared_workload("resnet50_int8")
-    cfgs = genomes_to_configs(genomes[:1024])
+    cfgs = genomes_to_configs(genomes)
     placed = place_configs(cfgs, dev)
 
     def run():
@@ -1009,14 +1056,14 @@ def _exact_phase(torch, np, dev, args, genomes, res4, main_path, g1, rt):
 
 def _profile_exact_micro_batch(torch, genomes, dev):
     """Trace one exact micro-batch: ``search_population`` of resnet50_int8
-    on 1,024 genomes (phase 4b's inputs)."""
+    on phase 4's 512 genomes (phase 4b's inputs)."""
     from repro_torch.core.compiler.batched_mapper import search_population
     from repro_torch.core.dse.engine import genomes_to_configs, \
         prepared_workload
     from repro_torch.core.simulator.batched import place_configs
 
     ws = prepared_workload("resnet50_int8")
-    cfgs = genomes_to_configs(genomes[:1024])
+    cfgs = genomes_to_configs(genomes)
     placed = place_configs(cfgs, dev)
 
     def run():
@@ -2282,9 +2329,45 @@ def _serve_phase(torch, np, dev, n, cfg, expected, profile=False):
            f"{wall:.2f} s (the first, cold run: {cold_wall:.2f} s); max "
            f"memory allocated "
            f"{out['max_memory_allocated_gb']:.2f} GB; launches {launches}")
+    out["fresh_ms"] = _prefill_routes_ms(torch, np, model, cfg, dev)
+    f = out["fresh_ms"]
+    _phase(f"{n}c", "prefill routes", f"{cfg.name}: a ({SERVE_BATCH}, "
+           f"{max(PROMPT_LENS)}) prefill into empty caches, median of "
+           f"{PREFILL_ROUTE_REPS}: {f['fresh']:.3f} ms told they are empty "
+           f"(prefill_step), {f['read_back']:.3f} ms reading each "
+           f"attention layer's lengths back")
     if profile:
         out["profile"] = _profile_serve_steps(torch, model, cfg, dev)
     return out
+
+
+def _prefill_routes_ms(torch, np, model, cfg, dev):
+    """The blocks of one (SERVE_BATCH, longest prompt) prefill into empty
+    caches, timed between synchronisations, PREFILL_ROUTE_REPS times each
+    way, alternating: ``fresh=True`` (``prefill_step``'s route: the
+    caches are known empty) and ``fresh=False`` (each attention layer reads
+    its caches' lengths back to the host to learn that).  Returns the
+    medians in ms."""
+    from repro_torch.models.model import _embed, _run_blocks, init_cache
+
+    B, S = SERVE_BATCH, max(PROMPT_LENS)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    ms = {True: [], False: []}
+    with torch.inference_mode():
+        x = _embed(model, tokens)
+        pos = torch.arange(S, device=dev).expand(B, S)
+        for _ in range(PREFILL_ROUTE_REPS):
+            for fresh in (True, False):
+                caches = init_cache(cfg, B, SERVE_MAX_LEN, dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _run_blocks(model, x, pos, None, caches, fresh=fresh)
+                torch.cuda.synchronize()
+                ms[fresh].append((time.perf_counter() - t) * 1e3)
+                del caches
+    return {"fresh": float(np.median(ms[True])),
+            "read_back": float(np.median(ms[False]))}
 
 
 def _layers_card_vs_cpu(torch, np, dev, cfg, rng, ctx_rows=0):
@@ -2711,14 +2794,16 @@ def _data(cfg, seq, batch, seed):
 
 
 def _train_phase(torch, np, dev, n, name, cfg, batch, seq, steps, lr,
-                 expected, cut, profile=False):
+                 expected, cut, profile=False, after=None):
     """Phases 14, 15 and 25 (c): ``train_loop`` on ``cfg`` from fresh random
     weights (seed 0) for ``steps`` steps of ``batch`` x ``seq`` tokens (and
     the frontend's input the data pipeline adds), remat, AdamW with
     float32 moments, and the loop's checkpoint of the last step (deleted
     after).  The launch counters are zeroed just before and read just
     after: each kernel of ``expected`` launches that many times per step.
-    ``profile`` traces one more step after the counted run."""
+    ``profile`` traces one more step after the counted run; ``after(state,
+    opt, extra)`` then gets the trained state, the optimiser's config and
+    the batch after the last (its record goes under ``after``)."""
     from repro_torch.checkpoint.ckpt import latest_step
     from repro_torch.kernels import ops as kops
     from repro_torch.optim.adamw import AdamWConfig
@@ -2797,11 +2882,82 @@ def _train_phase(torch, np, dev, n, name, cfg, batch, seq, steps, lr,
 
         r["profile"] = _trace(torch, run)
         _phase(f"{n}b", "profile", json.dumps(r["profile"]))
+    if after is not None:
+        extra = {k: torch.from_numpy(v).to(dev) for k, v in
+                 _data(cfg, seq, batch, 0).batch(steps).items()}
+        r["after"] = after(state, opt, extra)
     del state, model
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return r
+
+
+def _reshard_full_width(torch, np, cfg, state, opt, extra):
+    """Phase 15 (c): the trained full-width state through
+    ``ElasticMesh.reshard_state`` onto the (1, 1) mesh of an NCCL group of
+    one rank (destroyed after): every parameter and moment comes back a
+    plain tensor on the card, bit for bit, and one more step from it
+    gives a finite loss through the flash kernels."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import (AXIS_MAP_SINGLE,
+                                                  resolve_specs)
+    from repro_torch.kernels import ops as K
+    from repro_torch.models.model import param_specs
+    from repro_torch.train.fault import ElasticMesh
+    from repro_torch.train.step import make_train_step
+
+    old_p = dict(state["params"].named_parameters())
+    old_mu = state["opt"]["mu"]
+    try:
+        em = ElasticMesh()
+        mesh = em.mesh()
+        check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+              f"ElasticMesh().mesh(): {mesh}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = em.reshard_state(state, mesh, resolve_specs(
+            param_specs(cfg), AXIS_MAP_SINGLE))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def same(a, b, what):
+        if isinstance(b, dict):
+            for k in b:
+                same(a[k], b[k], f"{what}.{k}")
+            return 0
+        check(type(a) in (torch.Tensor, torch.nn.Parameter)
+              and a.device.type == "cuda" and a is not b
+              and a.dtype == b.dtype and torch.equal(a, b),
+              f"reshard_state: {what} not bit for bit on the card")
+        return a.numel() * a.element_size()
+
+    n_bytes = sum(same(p, old_p[n], n)
+                  for n, p in new["params"].named_parameters())
+    n_bytes += sum(same(v, old_mu[n][k], f"{n}.{k}")
+                   for n, m in new["opt"]["mu"].items()
+                   for k, v in m.items())
+    check(int(new["step"]) == int(state["step"]), "reshard_state: step")
+    del old_p, old_mu
+    K.reset_launch_counts()
+    _, metrics = make_train_step(cfg, opt)(new, extra)
+    loss = float(metrics["loss"])
+    launches = dict(K.launch_counts)
+    check(np.isfinite(loss) and launches["flash_attention_bwd"] > 0,
+          f"the step after reshard_state: loss {loss}, launches {launches}")
+    out = {"secs": secs, "gb": n_bytes / 1e9, "next_loss": loss,
+           "launches": launches}
+    _phase("15c", "reshard", f"the trained state ({n_bytes / 1e9:.2f} GB: "
+           f"parameters and float32 moments) through "
+           f"ElasticMesh.reshard_state onto the (1, 1) mesh in {secs:.2f} s "
+           f"(gathered to the host, re-placed): bit for bit, plain tensors "
+           f"on the card; the next step's loss {loss:.4f}; launches "
+           f"{launches}")
+    return out
 
 
 def _grads_off(got, want, float32=False):
@@ -3059,7 +3215,9 @@ def _train_phases(torch, np, dev, record, profile):
         TRAIN_SEQ, TRAIN_ATTN_STEPS, TRAIN_ATTN_LR,
         {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn},
         f", cut from {get_config(TRAIN_ATTN_ARCH).n_layers}",
-        profile=profile)
+        profile=profile,
+        after=lambda state, opt, extra: _reshard_full_width(
+            torch, np, attn_cfg, state, opt, extra))
     record["train_card_vs_cpu"] = _train_card_vs_cpu_phase(torch, np, dev)
     bwd = record["lm_bwd_kernels"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3291,13 +3449,186 @@ def _context_phases(torch, np, dev, record):
     return lines
 
 
+def _shard_phase(torch, np, dev, record):
+    """Phase 26: the sharding layer's one-device meaning on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.core.dse.api import EngineConfig
+    from repro_torch.core.dse.encoding import random_genomes
+    from repro_torch.core.dse.engine import EvalEngine
+    from repro_torch.distributed.overlap import ring_allgather_matmul
+    from repro_torch.distributed.sharding import (AXIS_MAP_SINGLE,
+                                                  resolve_specs)
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch.mesh import (candidate_sharding,
+                                         default_islands,
+                                         make_mesh_for_devices)
+    from repro_torch.models.model import Model, param_specs
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.fault import ElasticMesh
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        # ---- (a) the (1, 1) mesh and the ring matmul ----------------------
+        mesh = make_mesh_for_devices(1)
+        check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+              and dist.get_backend() == "nccl"
+              and tuple(mesh.mesh_dim_names) == ("data", "model"),
+              f"make_mesh_for_devices(1): {mesh} on {dist.get_backend()}")
+        S, D, F = RING_SHAPE
+        gen = torch.Generator().manual_seed(26)
+        x = torch.randn(S, D, generator=gen).to(dev)
+        w = torch.randn(D, F, generator=gen).to(dev)
+        y = ring_allgather_matmul(x, w, mesh.get_group("model"))
+        ref = torch.matmul(x, w)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max() / ref.abs().max())
+        check(tuple(y.shape) == (S, F) and err <= 1e-6,
+              f"ring_allgather_matmul: shape {tuple(y.shape)}, rel err "
+              f"{err:.3g}")
+        out["ring"] = {"shape": [S, D, F], "max_rel_err": err,
+                       "ms": _time_ms(torch, lambda: ring_allgather_matmul(
+                           x, w, mesh.get_group("model")), 10),
+                       "matmul_ms": _time_ms(torch, lambda: torch.matmul(
+                           x, w), 10)}
+        del x, w, y, ref
+        # ---- (b) the sharded engine on one device --------------------------
+        g = random_genomes(np.random.default_rng(26), SHARD_POPULATION)
+        check(candidate_sharding() is None
+              and default_islands(SHARD_POPULATION) == 1,
+              "one card: candidate_sharding must be None and "
+              "default_islands 1")
+        out["engines"] = {}
+        for backend in ("batched", "exact"):
+            secs = {}
+            rows = {}
+            for shard in (True, False):
+                eng = EvalEngine(SHARD_WORKLOADS, config=EngineConfig(
+                    backend=backend, shard=shard), device=dev)
+                check(eng._devices is None, "one card: no device split")
+                t1 = time.perf_counter()
+                rows[shard] = eng.evaluate(g)
+                secs[shard] = time.perf_counter() - t1
+            for k in ("latency", "energy", "tops_w", "area"):
+                check(np.array_equal(rows[True][k], rows[False][k]),
+                      f"{backend}: shard=True {k} differs from shard=False")
+            out["engines"][backend] = {"shard_s": secs[True],
+                                       "unsharded_s": secs[False]}
+        # ---- (c) a resumed run through reshard_state -----------------------
+        cfg = get_config(ELASTIC_ARCH).reduced()
+        pipe = _data(cfg, ELASTIC_SEQ, ELASTIC_BATCH, 0)
+        opt_cfg = AdamWConfig(lr=3e-3)
+        specs = resolve_specs(param_specs(cfg), AXIS_MAP_SINGLE)
+
+        def run(reshard_at):
+            model = Model(cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(0))
+            state = init_train_state(cfg, model, opt_cfg)
+            step = make_train_step(cfg, opt_cfg)
+            losses = []
+            for i in range(ELASTIC_STEPS):
+                if i == reshard_at:
+                    em = ElasticMesh()
+                    state = em.reshard_state(state, em.mesh(), specs)
+                    check(all(type(p) is torch.nn.Parameter
+                              and p.device.type == "cuda"
+                              for p in state["params"].parameters()),
+                          "reshard_state: parameters not plain on the card")
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in pipe.batch(i).items()}
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            return losses
+
+        K.reset_launch_counts()
+        clean = run(None)
+        resumed = run(ELASTIC_AT)
+        launches = dict(K.launch_counts)
+        rel = abs(resumed[-1] - clean[-1]) / abs(clean[-1])
+        check(np.isfinite(clean[-1]) and rel <= ELASTIC_RTOL,
+              f"resumed loss {resumed[-1]!r} vs {clean[-1]!r}: rel {rel:.3g}")
+        check(launches["flash_attention"] > 0
+              and launches["flash_attention_bwd"] > 0,
+              f"the training steps ran no flash kernel: {launches}")
+        out["elastic"] = {"clean": clean, "resumed": resumed,
+                          "final_rel": rel, "launches": launches}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t0
+    e = out["engines"]
+    _phase(26, "sharding", f"{out['phase_s']:.3f} s on {dev}. (a) (1, 1) "
+           f"mesh over an NCCL group of one rank; ring_allgather_matmul "
+           f"{S}x{D} @ {D}x{F} float32 max rel err {err:.3g} against "
+           f"torch.matmul ({out['ring']['ms']:.4f} ms against "
+           f"{out['ring']['matmul_ms']:.4f} ms, events); (b) shard=True on "
+           f"{SHARD_POPULATION} genomes x {SHARD_WORKLOADS} bit for bit "
+           f"shard=False (default_islands({SHARD_POPULATION}) == 1): "
+           + ", ".join(f"{b} {v['shard_s']:.3f} s / {v['unsharded_s']:.3f} s"
+                       for b, v in e.items())
+           + f"; (c) reduced {ELASTIC_ARCH} {ELASTIC_STEPS} steps of "
+           f"{ELASTIC_BATCH} x {ELASTIC_SEQ}, reshard_state at step "
+           f"{ELASTIC_AT}: last loss {out['elastic']['resumed'][-1]:.7g} "
+           f"against {out['elastic']['clean'][-1]:.7g} uninterrupted (rel "
+           f"{rel:.3g}, limit {ELASTIC_RTOL}); launches {launches}")
+    record["sharding"] = out
+
+
+def _dryrun_phase(record):
+    """Phase 27: one production cell of the dry-run on the fake (16, 16)
+    mesh (host work) and the mesh search's top three."""
+    from repro_torch.core.tpu_dse import search_mesh
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import analyze
+    from repro_torch.models.registry import get_config
+
+    arch, shape = DRYRUN_CELL
+    t0 = time.perf_counter()
+    rec = run_cell(arch, shape)
+    secs = time.perf_counter() - t0
+    check("error" not in rec, f"dry-run {arch} {shape}: {rec.get('error')}"
+          f"\n{rec.get('traceback', '')}")
+    a = analyze(rec)
+    check(rec["flops_per_device"] > 0 and a["collective_s"] > 0,
+          f"dry-run {arch} {shape}: no flops or no collectives")
+    ranked = search_mesh(get_config(arch), chips=256, global_batch=256,
+                         seq_len=4096)
+    top = [{"dp": c.knobs.dp, "tp": c.knobs.tp,
+            "microbatches": c.knobs.microbatches, "remat": c.knobs.remat,
+            "step_s": c.step_s, "hbm_gib": c.hbm_gib, "fits": c.fits}
+           for c in ranked[:3]]
+    check(top and top[0]["fits"], "search_mesh: the best mesh does not fit")
+    coll = rec["collectives"]
+    record["dryrun"] = {"cell": rec, "analysis": {
+        k: a[k] for k in ("compute_s", "memory_s", "collective_s",
+                          "dominant", "useful_ratio", "roofline_frac")},
+        "wall_s": secs, "search_mesh_top3": top}
+    _phase(27, "dry-run", f"{arch} {shape} on the fake {rec['mesh']} mesh "
+           f"({rec['n_devices']} ranks), traced in {secs:.3f} s on the "
+           f"host: {rec['flops_per_device']:.6g} flops, "
+           f"{rec['bytes_per_device']:.6g} bytes a device; collectives "
+           + ", ".join(f"{k} {v['count']} x, {v['bytes']:.6g} B"
+                       for k, v in sorted(coll.items()))
+           + f"; peak {rec['memory']['peak_bytes'] / 2**30:.3f} GiB a "
+           f"device; at the H100's data-sheet rates compute "
+           f"{a['compute_s'] * 1e3:.3f} ms, memory {a['memory_s'] * 1e3:.3f}"
+           f" ms, collective {a['collective_s'] * 1e3:.3f} ms "
+           f"({a['dominant']}). search_mesh top 3: " + "; ".join(
+               f"dp {c['dp']} tp {c['tp']} mb {c['microbatches']} remat "
+               f"{c['remat']} {c['step_s'] * 1e3:.3f} ms {c['hbm_gib']:.2f} "
+               f"GiB" for c in top))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON")
     ap.add_argument("--profile", action="store_true",
                     help="also trace, with torch.profiler, one DSE engine "
                          "micro-batch of each exact backend (resnet50_int8, "
-                         "1,024 genomes), one "
+                         "512 genomes), one "
                          "(4, 512) prefill wave, one decode step and one "
                          "step of each training phase: device busy share "
                          "and the kernels that take the time")
@@ -3313,7 +3644,7 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels import _build
 
-    t_start = time.perf_counter()
+    t_start = _T0[0] = time.perf_counter()
     dev = torch.device(DEVICE)
     record = {}
 
@@ -3343,12 +3674,19 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels += _context_phases(torch, np, dev, record)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _shard_phase(torch, np, dev, record)
+    _dryrun_phase(record)
 
     record["total_s"] = time.perf_counter() - t_start
+    record["phase_end_s"] = dict(_ELAPSED)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(record, fh, indent=1, default=float)
-    print(f"total {record['total_s']:.1f} s", flush=True)
+    print(f"total {record['total_s']:.1f} s; each phase's last line at "
+          + ", ".join(f"{k} {v:.1f}" for k, v in _ELAPSED.items()) + " s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,8 +23,15 @@ the genome memo behind the ``ResultStore`` interface (keys are ``mode:``
 
 ``EvalEngine(workloads, config=EngineConfig(...), device=None)`` runs on
 ``cuda`` and raises without a card unless ``device="cpu"`` is passed.
-Every backend runs in both modes and both fidelity tiers; ``shard=True``
-raises ``NotImplementedError`` naming its ROADMAP.md queue item.  The
+Every backend runs in both modes and both fidelity tiers.  ``shard=True``
+splits each micro-batch over the local devices
+(``launch.mesh.candidate_sharding``): the batch is padded to a multiple
+of the device count by repeating its first row (``_pad_size``), each
+device scores one contiguous block, and the blocks' rows are joined in
+order, bit for bit the one-device result; on one device it is the
+one-device path.  The blocks are dispatched one after another from the
+calling thread, so while that stays so ``shard=True`` buys no speed on
+several devices: it spreads the rows, not the time.  The
 reference's deprecated per-knob constructor arguments (``batch=``,
 ``backend=``, ``memo_limit=`` and the rest) are keyword-only after
 ``device`` and behave as the reference's: one ``DeprecationWarning`` per
@@ -452,11 +459,12 @@ class EvalEngine:
                     DeprecationWarning, stacklevel=2)
             config = EngineConfig(**legacy)
         check_fidelity(config.fidelity)
-        if config.shard:
-            raise NotImplementedError(
-                "shard=True has no counterpart on one card yet: ROADMAP.md "
-                "queue item A7")
         self.device = resolve_device(device)
+        self.shard = config.shard
+        self._devices = None
+        if config.shard:
+            from ...launch.mesh import candidate_sharding
+            self._devices = candidate_sharding(self.device)
         self.config = config
         self.exact_mapper = config.exact_mapper
         self.mode = config.mode
@@ -538,30 +546,72 @@ class EvalEngine:
         return {"tile": {k: v[idx] for k, v in cfgs["tile"].items()},
                 "chip": {k: v[idx] for k, v in cfgs["chip"].items()}}
 
+    def _pad_size(self, n: int) -> int:
+        """Rows a sharded micro-batch is padded to: ``n`` rounded up to a
+        multiple of the device count, so that every device takes an equal
+        block (the reference rounds its jit bucket up the same way; the
+        port compiles no shapes, so there is no bucket).  ``n`` on one
+        device."""
+        ndev = len(self._devices) if self._devices is not None else 1
+        return -(-n // ndev) * ndev
+
+    def _blocks(self, n: int):
+        """How ``n`` rows are split: ``(pad, [(device, rows), ...])``, the
+        padded row count (``_pad_size``; the callers fill the padding with
+        row 0) and one contiguous ``slice`` of the padded rows per device,
+        in order.  One block of ``n`` rows on one device.  The callers
+        (``_simulate`` and the fused GA's scorer) dispatch the blocks one
+        after another from one thread, so more devices add padding and
+        transfers but no speed until the dispatch runs them at once."""
+        devs = self._devices or [self.device]
+        pad = self._pad_size(n)
+        blk = pad // len(devs)
+        return pad, [(d, slice(i * blk, (i + 1) * blk))
+                     for i, d in enumerate(devs)]
+
     def _simulate(self, cfgs, genomes: np.ndarray, mode: str,
                   oracle: Optional[bool] = None, exact: bool = False):
         """(n, W) lat/en/tw for a config stack (and its genomes) through
         this engine's backend, or the oracle when ``oracle`` says so;
         ``exact`` sends a scan engine through the exact paths
         (``rescore``).  Unmappable (genome, workload) pairs score inf
-        latency/energy and 0 TOPS/W."""
+        latency/energy and 0 TOPS/W.  A sharded engine pads the stack to
+        ``_pad_size`` rows by repeating row 0 and scores one contiguous
+        block per device."""
         self.stats.dispatches += 1
+        n = len(genomes)
+        pad, blocks = self._blocks(n)
+        if len(blocks) == 1 or n == 0:
+            return self._dispatch(cfgs, genomes, mode, oracle, exact,
+                                  self.device)
+        sel = np.concatenate([np.arange(n), np.zeros(pad - n, np.int64)])
+        cfgs, genomes = self._take(cfgs, sel), genomes[sel]
+        parts = [self._dispatch(self._take(cfgs, np.arange(pad)[rows]),
+                                genomes[rows], mode, oracle, exact, dev)
+                 for dev, rows in blocks]
+        return tuple(np.concatenate([p[k] for p in parts])[:n]
+                     for k in range(3))
+
+    def _dispatch(self, cfgs, genomes: np.ndarray, mode: str,
+                  oracle: Optional[bool], exact: bool, device):
+        """``_simulate``'s work for one block on ``device``."""
         oracle = self.backend == "oracle" if oracle is None else oracle
         if self.backend == "scan" and not (exact or oracle):
-            return self._simulate_scan(cfgs, mode)
+            return self._simulate_scan(cfgs, mode, device)
         if oracle or self.exact_mapper == "python":
-            return self._simulate_per_candidate(cfgs, genomes, mode, oracle)
+            return self._simulate_per_candidate(cfgs, genomes, mode, oracle,
+                                                device)
         lkey, ekey, akey = _MODE_KEYS[mode]
         n, W = len(cfgs["chip"]["chip_area"]), len(self.workloads)
         lat = np.full((n, W), np.inf)
         en = np.full((n, W), np.inf)
         tw = np.zeros((n, W))
         # device placement once, not once per workload
-        placed = place_configs(cfgs, self.device)
+        placed = place_configs(cfgs, device)
         results = search_population(
             [self._prepared(w) for w in self.workloads], cfgs, self.calib,
             mode=mode, out_keys=(lkey, ekey, akey),
-            fidelity=self.fidelity, device=self.device, placed=placed)
+            fidelity=self.fidelity, device=device, placed=placed)
         for j, res in enumerate(results):
             ok = res["ok"]
             l, e = res[lkey], res[ekey]
@@ -571,19 +621,19 @@ class EvalEngine:
             tw[ok, j] = res[akey][ok] / np.maximum(power, 1e-30)
         return lat, en, tw
 
-    def _simulate_scan(self, cfgs, mode: str):
-        """The scan backend: ``batch_evaluate`` per workload on this
-        engine's device (the approximate in-scan mapping; unmappable
-        pairs score inf latency and energy through it)."""
+    def _simulate_scan(self, cfgs, mode: str, device):
+        """The scan backend: ``batch_evaluate`` per workload on ``device``
+        (the approximate in-scan mapping; unmappable pairs score inf
+        latency and energy through it)."""
         lkey, ekey, akey = _MODE_KEYS[mode]
         n, W = len(cfgs["chip"]["chip_area"]), len(self.workloads)
         lat = np.zeros((n, W))
         en = np.zeros((n, W))
         tw = np.zeros((n, W))
-        placed = place_configs(cfgs, self.device)
+        placed = place_configs(cfgs, device)
         for j, wname in enumerate(self.workloads):
             res = batch_evaluate(self._prepared(wname), cfgs, self.calib,
-                                 fidelity=self.fidelity, device=self.device,
+                                 fidelity=self.fidelity, device=device,
                                  placed=placed)
             lat[:, j] = res[lkey]
             en[:, j] = res[ekey]
@@ -592,10 +642,10 @@ class EvalEngine:
         return lat, en, tw
 
     def _simulate_per_candidate(self, cfgs, genomes: np.ndarray, mode: str,
-                                oracle: bool):
+                                oracle: bool, device):
         """The per-candidate exact paths: ``map_graph`` on each decoded
         chip, then either the plan tables through ``batch_simulate`` on
-        this engine's device (``exact_mapper="python"``; the chips'
+        ``device`` (``exact_mapper="python"``; the chips'
         fields come from ``cfgs``, the stack the batched backend scores,
         so the two agree bit for bit), or the host ``ChipSim`` walk of
         each plan (``oracle``)."""
@@ -637,7 +687,7 @@ class EvalEngine:
             res = batch_simulate(stack_plan_tables(tables),
                                  self._take(cfgs, np.asarray(rows)),
                                  self.calib, mode=mode,
-                                 fidelity=self.fidelity, device=self.device)
+                                 fidelity=self.fidelity, device=device)
             l, e = res[lkey], res[ekey]
             lat[rows, j] = l
             en[rows, j] = e
@@ -658,7 +708,8 @@ class EvalEngine:
         backend's metrics out, one dispatch per ``batch`` rows -- no cache
         interaction, no keep predicate, no request/hit/miss accounting
         (only ``stats.dispatches`` counts).  The port compiles no shapes,
-        so a micro-batch is not padded.  Returns ``latency``/``energy``/
+        so only a sharded engine pads a micro-batch (``_pad_size``).
+        Returns ``latency``/``energy``/
         ``tops_w`` (N, W) and ``area`` (N,), bit for bit ``evaluate``'s
         rows for the same genomes."""
         mode = self._check_mode(mode)
@@ -852,8 +903,9 @@ class EvalEngine:
 
     def reserve_shapes(self, max_batch: int = 64) -> None:
         """The reference's signature.  The reference pre-registers its
-        jit batch buckets here; the port compiles no shapes and pads no
-        batch, so there is nothing to reserve and this changes nothing."""
+        jit batch buckets here; the port compiles no shapes (a sharded
+        engine pads only to a multiple of its device count), so there is
+        nothing to reserve and this changes nothing."""
 
     def warmup(self, buckets: Sequence[int] = tuple(range(16, 68, 4))
                ) -> None:

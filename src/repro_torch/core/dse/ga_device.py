@@ -24,10 +24,12 @@ Two loops:
   so the generation loop runs on the host; per generation it reads only
   the all-hit flag (an all-hit generation skips the search, as the
   reference's ``lax.cond`` does) and the stall count.  ``islands > 1``
-  splits the population into logical islands on the one device: per-
-  island draws and ring migration of the top ``migrate_k`` rows every
-  ``migrate_every`` generations.  With one island it walks exactly
-  ``run_ga_device``'s genome stream.
+  splits the population into islands: per-island draws and ring
+  migration of the top ``migrate_k`` rows every ``migrate_every``
+  generations; with several local devices each holds one block of
+  islands (``launch.mesh.island_sharding``), on one card they are
+  logical.  With one island it walks exactly ``run_ga_device``'s genome
+  stream.
 
 Random draws.  ``jax.random`` (threefry) and torch (Philox) streams
 cannot match, so the genetics step takes its draws -- tournament
@@ -703,13 +705,28 @@ class _Scorer:
         self.searches, self.hits = 0, 0
 
     def _search(self, pop):
+        """The exact search of ``pop`` on the engine's device, or, for a
+        sharded engine, one block per device (``EvalEngine._blocks``: the
+        rows padded with row 0), joined in order on the engine's
+        device."""
+        eng = self.engine
+        n = len(pop)
+        pad, blocks = eng._blocks(n)
+        if len(blocks) == 1:
+            return self._search_on(pop, eng.device)
+        pop = torch.cat([pop, pop[:1].expand(pad - n, -1)])
+        parts = [self._search_on(pop[rows].to(d), d) for d, rows in blocks]
+        return tuple(torch.cat([p[k].to(eng.device) for p in parts])[:n]
+                     for k in range(3))
+
+    def _search_on(self, pop, device):
         lkey, ekey, akey = self.keys
         tile, chip, _ = _configs_device(pop, self.calib)
         chip = {k: x.reshape(-1, 1) for k, x in chip.items()}
         eng = self.engine
         outs = search_population(self.ws, None, self.calib, mode=eng.mode,
                                  out_keys=self.keys, fidelity=eng.fidelity,
-                                 device=eng.device, placed=(tile, chip),
+                                 device=device, placed=(tile, chip),
                                  as_tensors=True)
         l = torch.stack([o[lkey] for o in outs], dim=1)       # (P, W)
         e = torch.stack([o[ekey] for o in outs], dim=1)
@@ -745,21 +762,34 @@ class _Scorer:
         return fit, lat, en, tw, area, memo
 
 
-def _migrate(pop, fit, islands: int, k: int):
-    """Ring migration: each island's top ``k`` rows (and their fitness)
-    replace the next island's worst ``k``."""
-    P, L = pop.shape
-    Pi = P // islands
-    popI = pop.reshape(islands, Pi, L).clone()
-    fitI = fit.reshape(islands, Pi).clone()
-    order = torch.argsort(-fitI, dim=1, stable=True)      # best first
-    top, worst = order[:, :k], order[:, Pi - k:]
-    mig_g = torch.roll(popI.gather(1, top[:, :, None].expand(-1, -1, L)),
-                       1, dims=0)                           # ring: i <- i-1
-    mig_f = torch.roll(fitI.gather(1, top), 1, dims=0)
-    popI.scatter_(1, worst[:, :, None].expand(-1, -1, L), mig_g)
-    fitI.scatter_(1, worst, mig_f)
-    return popI.reshape(P, L), fitI.reshape(P)
+def _migrate(pops, fits, per_block: int, k: int):
+    """Ring migration over the island blocks (one block of ``per_block``
+    islands per device): each island's top ``k`` rows (and their fitness)
+    replace the next island's worst ``k``; the first island of a block
+    takes the previous block's last island's migrants, moved across from
+    that block's device."""
+    parts = []
+    for pop, fit in zip(pops, fits):
+        P, L = pop.shape
+        Pi = P // per_block
+        popI = pop.reshape(per_block, Pi, L).clone()
+        fitI = fit.reshape(per_block, Pi).clone()
+        order = torch.argsort(-fitI, dim=1, stable=True)  # best first
+        top, worst = order[:, :k], order[:, Pi - k:]
+        parts.append((popI, fitI, worst,
+                      popI.gather(1, top[:, :, None].expand(-1, -1, L)),
+                      fitI.gather(1, top)))
+    out_p, out_f = [], []
+    for b, (popI, fitI, worst, mig_g, mig_f) in enumerate(parts):
+        prev_g, prev_f = parts[b - 1][3], parts[b - 1][4]  # ring: i <- i-1
+        in_g = torch.cat([prev_g[-1:].to(popI.device), mig_g[:-1]])
+        in_f = torch.cat([prev_f[-1:].to(fitI.device), mig_f[:-1]])
+        L = popI.shape[-1]
+        popI.scatter_(1, worst[:, :, None].expand(-1, -1, L), in_g)
+        fitI.scatter_(1, worst, in_f)
+        out_p.append(popI.reshape(-1, L))
+        out_f.append(fitI.reshape(-1))
+    return out_p, out_f
 
 
 def run_ga_fused(sweep, bracket: float, cfg=None, seed: int = 0,
@@ -780,9 +810,15 @@ def run_ga_fused(sweep, bracket: float, cfg=None, seed: int = 0,
     bracket has no homogeneous baseline); requires a local
     ``EvalEngine(backend="exact")`` -- without one it builds
     ``EngineConfig(backend="exact", nonfinite="skip")`` on ``device``.
-    ``islands=None`` is one island on one card (the reference's
-    ``default_islands`` on one device), which walks the genome stream of
-    ``run_ga_device``.  ``store_sync=True`` treats this call as one seed
+    ``islands=None`` is ``launch.mesh.default_islands``: one island per
+    local device when the population splits evenly, so one island on one
+    card, which walks the genome stream of ``run_ga_device``.  With more
+    than one device and islands that divide over them
+    (``launch.mesh.island_sharding``), each device holds one contiguous
+    block of islands and runs their genetics, and the ring migration
+    moves rows between devices; a sharded engine splits the search of the
+    misses over its devices.  The result is bit for bit the one-device
+    run's.  ``store_sync=True`` treats this call as one seed
     boundary: the memo preloads from the engine store's LRU tier and
     drains back after the run (the pipeline passes ``memo=`` and manages
     the boundaries itself).  The engine's stats and store see nothing
@@ -813,7 +849,10 @@ def run_ga_fused(sweep, bracket: float, cfg=None, seed: int = 0,
     pop0 = _seed_population(sweep, bracket, cfg, seed)
 
     P = cfg.population
-    islands = 1 if islands is None else max(int(islands), 1)
+    if islands is None:
+        from ...launch.mesh import default_islands
+        islands = default_islands(P, dev)
+    islands = max(int(islands), 1)
     if P % islands:
         raise ValueError(f"population {P} not divisible into "
                          f"{islands} islands")
@@ -831,10 +870,22 @@ def run_ga_fused(sweep, bracket: float, cfg=None, seed: int = 0,
         raise ValueError(f"memo carries {memo.vals.shape[-1]}-workload "
                          f"rows; engine scores {W}")
 
+    from ...launch.mesh import island_sharding
+    homes = (island_sharding(islands, dev) if islands > 1 else None) \
+        or [dev]
+    per_block, Pb = islands // len(homes), P // len(homes)
+
+    def blocks(t):
+        return [t[b * Pb:(b + 1) * Pb].to(d) for b, d in enumerate(homes)]
+
+    def joined(ts):
+        return torch.cat([t.to(dev) for t in ts])
+
     score = _Scorer(engine, calib, e_homo, lo, hi, float(cfg.alpha))
     source = (draws or TorchDraws)(seed + int(bracket))
     pop = torch.as_tensor(pop0, dtype=torch.int32, device=dev)
     fit, lat, en, tw, area, memo = score(pop, _canonical_device(pop), memo)
+    pops, fits = blocks(pop), blocks(fit)
     gi = fit.argmax()
     best = [fit[gi], pop[gi], lat[gi], en[gi], tw[gi], area[gi]]
     hist = torch.full((cfg.generations + 1,), -torch.inf, dtype=F64,
@@ -844,15 +895,24 @@ def run_ga_fused(sweep, bracket: float, cfg=None, seed: int = 0,
     gen, stall_h = 0, 0
     while gen < cfg.generations and stall_h < cfg.early_stop:
         if islands > 1 and gen > 0 and gen % migrate_every == 0:
-            pop, fit = _migrate(pop, fit, islands, mk)
+            pops, fits = _migrate(pops, fits, per_block, mk)
         ds = source(islands, Pi, cfg.tournament, n_elite, dev)
-        parts = [genetics_step(pop[i * Pi:(i + 1) * Pi],
-                               fit[i * Pi:(i + 1) * Pi], ds[i], n_elite,
-                               cfg.crossover_rate, cfg.mutation_rate)
-                 for i in range(islands)]
-        pop = torch.cat([p[0] for p in parts])
-        canon = torch.cat([p[1] for p in parts])
+        parts = []
+        for b, home in enumerate(homes):
+            for j in range(per_block):
+                d = GeneticDraws(*(x.to(home)
+                                   for x in ds[b * per_block + j]))
+                parts.append(genetics_step(
+                    pops[b][j * Pi:(j + 1) * Pi],
+                    fits[b][j * Pi:(j + 1) * Pi], d, n_elite,
+                    cfg.crossover_rate, cfg.mutation_rate))
+        pops = [torch.cat([p[0] for p in parts[b * per_block:
+                                                (b + 1) * per_block]])
+                for b in range(len(homes))]
+        pop = joined(pops)
+        canon = joined([p[1] for p in parts])
         fit, lat, en, tw, area, memo = score(pop, canon, memo)
+        fits = blocks(fit)
         gi = fit.argmax()
         imp = fit[gi] > best[0]
         best = [torch.where(imp, new, old) for new, old in

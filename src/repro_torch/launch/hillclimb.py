@@ -1,5 +1,13 @@
 """Perf hillclimbs (port of ``repro/launch/hillclimb.py``).
 
+Cell mode (the original): trace ONE LM cell under a knob setting
+(``launch.dryrun.run_cell`` on the fake production mesh) and report its
+roofline terms at the H100's rates and its peak memory
+(``launch.roofline.analyze``).
+
+  PYTHONPATH=src python -m repro_torch.launch.hillclimb --arch mamba2-780m \
+      --shape train_4k --set ssd_chunk=64 --tag chunk64
+
 DSE mode: greedy single-gene hillclimb over the 12-knob genome space,
 scored through any ``Evaluator`` -- the cache-aware ``EvalEngine``, a
 ``DSEClient`` or a ``DSECluster``.  Hillclimbing revisits neighbouring
@@ -9,11 +17,6 @@ never-seen neighbours are simulated.
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --dse \\
       --workloads resnet50_int8 kan --budget 200 --steps 24 [--device cpu]
-
-Cell mode (``--arch``/``--shape``: lower one LM cell under a knob setting
-and report its roofline terms) needs ``launch/dryrun``, ``roofline`` and
-the rest of ``tuning``, which the port does not have yet: it raises
-``NotImplementedError`` naming ROADMAP.md queue item A13e.
 """
 import argparse
 import json
@@ -92,11 +95,51 @@ def dse_hillclimb(workloads, budget_mm2: float = 200.0, steps: int = 24,
     }
 
 
-def _main_cell(args):
-    raise NotImplementedError(
-        "the cell mode (--arch/--shape) needs launch/dryrun, roofline and "
-        "the rest of tuning, which have no counterpart in the port yet: "
-        "ROADMAP.md queue item A13e")
+def _parse_knobs(pairs):
+    kw = {}
+    for kv in pairs:
+        k, v = kv.split("=")
+        kw[k] = (v == "true") if v in ("true", "false") else \
+            (int(v) if v.isdigit() else v)
+    return kw
+
+
+def _main_cell(args, cfg=None):
+    """``cfg`` replaces ``get_config(args.arch)`` (the tests pass a
+    ``reduced()`` config)."""
+    from repro_torch.launch import tuning
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import analyze
+
+    kw = _parse_knobs(args.set)
+    tuning.set_knobs(**kw)
+    try:
+        rec = run_cell(args.arch, args.shape, args.multi_pod, cfg=cfg)
+    finally:
+        tuning.set_knobs()
+    rec["knobs"] = kw
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, f"{args.arch}_{args.shape}_{args.tag}.json")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    if "error" in rec:
+        print("FAIL:", rec["error"][:300])
+        raise SystemExit(1)
+    if "skipped" in rec:
+        print("SKIPPED:", rec["skipped"])
+        return rec
+    a = analyze(rec)
+    print(json.dumps({
+        "tag": args.tag, "knobs": kw,
+        "compute_ms": round(a["compute_s"] * 1e3, 2),
+        "memory_ms": round(a["memory_s"] * 1e3, 2),
+        "collective_ms": round(a["collective_s"] * 1e3, 2),
+        "dominant": a["dominant"],
+        "roofline_frac_pct": round(a["roofline_frac"] * 100, 2),
+        "useful_ratio": round(a["useful_ratio"], 3),
+        "peak_gib": round(a["peak_gib"], 2),
+    }, indent=1))
+    return rec
 
 
 def _main_dse(args):
@@ -118,6 +161,10 @@ def main(argv=None):
                     help="genome hillclimb through the DSE EvalEngine")
     ap.add_argument("--arch")
     ap.add_argument("--shape")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--set", nargs="*", default=[],
+                    help="knob=value pairs (act_mode, ssd_chunk, "
+                         "moe_dispatch_bf16, microbatches)")
     ap.add_argument("--workloads", nargs="*",
                     default=["resnet50_int8", "kan"])
     ap.add_argument("--budget", type=float, default=200.0)

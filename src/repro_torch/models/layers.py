@@ -28,16 +28,27 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..distributed import sharding as _shard
+from ..distributed.sharding import PartitionSpec as P
 from ..kernels import ops as kops
 from ..launch import tuning
 from ..numerics import einsum, gelu_tanh, silu
 from .config import ModelConfig
 
 __all__ = ["DTYPE", "Dense", "Norm", "norm", "rope", "Attention", "MLA",
-           "FFN", "MoE", "Mamba2", "ssd_scan_ref"]
+           "FFN", "MoE", "Mamba2", "ssd_scan_ref", "spec_dense", "spec_norm",
+           "spec_attention", "spec_mla", "spec_ffn", "spec_moe",
+           "spec_mamba2", "COST_MODE"]
 
 DTYPE = torch.bfloat16
 Cache = Dict[str, torch.Tensor]
+Specs = Dict[str, object]
+
+# Cost-analysis mode (``model.set_scan_unroll``): attention of a whole
+# sequence off the card takes ``_sdpa_direct`` instead of the flash
+# kernel, the reference's loop-free route for its dry-run cost pass.
+# Tensors on the card keep the kernel whatever this says.
+COST_MODE: list = [False]
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -111,6 +122,73 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # =============================================================================
+# sharding specs: each module's parameters by name, with the logical axes
+# of the reference's ``spec_*`` functions ("d" FSDP, "m" tensor parallel)
+# =============================================================================
+
+def spec_dense(shard_in: Optional[str], shard_out: Optional[str],
+               bias: bool = False) -> Specs:
+    p = {"w": P(shard_in, shard_out)}
+    if bias:
+        p["b"] = P(shard_out)
+    return p
+
+
+def spec_norm() -> Specs:
+    return {"scale": P(None)}
+
+
+def spec_attention(cfg: ModelConfig) -> Specs:
+    b = cfg.qkv_bias
+    return {
+        "q": spec_dense("d", "m", b),
+        "k": spec_dense("d", "m" if cfg.n_kv_heads > 1 else None, b),
+        "v": spec_dense("d", "m" if cfg.n_kv_heads > 1 else None, b),
+        "o": spec_dense("m", "d"),
+    }
+
+
+def spec_mla(cfg: ModelConfig) -> Specs:
+    return {
+        "q": spec_dense("d", "m"),
+        "dkv": spec_dense("d", None),
+        "kr": spec_dense("d", None),
+        "ukv": spec_dense(None, "m"),
+        "o": spec_dense("m", "d"),
+    }
+
+
+def spec_ffn(cfg: ModelConfig) -> Specs:
+    if cfg.act == "silu":
+        return {"wi": spec_dense("d", "m"), "wg": spec_dense("d", "m"),
+                "wo": spec_dense("m", "d")}
+    return {"wi": spec_dense("d", "m"), "wo": spec_dense("m", "d")}
+
+
+def spec_moe(cfg: ModelConfig) -> Specs:
+    p = {
+        "router": spec_dense("d", None),
+        # experts shard over the TP axis (EP); d_model over FSDP axis
+        "wi": P("m", "d", None),
+        "wg": P("m", "d", None),
+        "wo": P("m", None, "d"),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = spec_ffn(cfg)
+    return p
+
+
+def spec_mamba2(cfg: ModelConfig) -> Specs:
+    return {
+        "in_proj": spec_dense("d", "m"),
+        "conv_w": P(None, "m"),
+        "a_log": P(None), "dt_bias": P(None), "d_skip": P(None),
+        "out_norm": spec_norm(),
+        "out_proj": spec_dense("m", "d"),
+    }
+
+
+# =============================================================================
 # GQA / MQA / MHA self-attention with an optional KV cache, and
 # cross-attention
 # =============================================================================
@@ -172,8 +250,10 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> torch.Tensor:
     """Attention without a cache: a whole sequence (S > 1) through the
     kernel, one token through ``_sdpa_direct`` (the reference's ``_sdpa``
-    takes its direct path there too)."""
-    if q.shape[1] > 1:
+    takes its direct path there too).  In ``COST_MODE`` every length off
+    the card takes the direct path (the dry-run's CPU-typed tensors);
+    a sequence on the card still goes through the kernel."""
+    if q.shape[1] > 1 and not (COST_MODE[0] and q.device.type != "cuda"):
         return _flash(q, k, v, causal)
     return _sdpa_direct(q, k, v, causal)
 
@@ -193,9 +273,12 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Cache] = None,
-                cross_ctx: Optional[torch.Tensor] = None):
+                cross_ctx: Optional[torch.Tensor] = None,
+                fresh: bool = False):
         """Causal self-attention, or cross-attention over ``cross_ctx``
-        (B, T, d_model).  Returns (out, cache).
+        (B, T, d_model).  Returns (out, cache).  ``fresh``: the caller
+        knows ``cache`` is empty (every ``len`` 0), which spares reading
+        the lengths back from the device.
 
         With a context, k and v come from its T rows without rope and
         without a cache, and every query attends over all of them
@@ -234,11 +317,11 @@ class Attention(nn.Module):
         k = rope(k, positions, cfg.rope_theta)
         if cache is None:
             return self.o(_attend(q, k, v, causal=True)), None
-        if S > 1 and not bool((cache["len"] != 0).any()):
+        if S > 1 and (fresh or not bool((cache["len"] != 0).any())):
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
             cache["len"] += S
-            return self.o(_flash(q, k, v, causal=True)), cache
+            return self.o(_attend(q, k, v, causal=True)), cache
         T = cache["k"].shape[1]
         # the reference's dynamic_update_slice clamps the start into range
         start = cache["len"][0].clamp(0, T - S)
@@ -285,11 +368,12 @@ class MLA(nn.Module):
         self.o = Dense(h * dv, d, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: Optional[Cache] = None):
+                cache: Optional[Cache] = None, fresh: bool = False):
         """Returns (out, cache).  ``cache`` = {"ckv": (B,T,r), "kr":
         (B,T,dr), "len": (B,)}: the S new tokens are written at row 0's
         ``len`` for every row (clamped into range, as the reference's
-        ``dynamic_update_slice``), ``len`` rises by S, and the queries
+        ``dynamic_update_slice``; at row 0 when the caller says the cache
+        is ``fresh``), ``len`` rises by S, and the queries
         attend over the whole cache, masked to ``tpos <= position`` and
         ``tpos < len``.  Without a cache they attend over the S new
         tokens, masked to ``tpos <= position``.  The two score einsums
@@ -306,11 +390,16 @@ class MLA(nn.Module):
                   cfg.rope_theta)[:, :, 0]                         # (B,S,dr)
         kv_len = None
         if cache is not None:
-            T = cache["ckv"].shape[1]
-            start = cache["len"][0].clamp(0, T - S)
-            rows = start + torch.arange(S, device=x.device)
-            cache["ckv"].index_copy_(1, rows, ckv.to(cache["ckv"].dtype))
-            cache["kr"].index_copy_(1, rows, kr.to(cache["kr"].dtype))
+            if fresh:
+                cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+                cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
+            else:
+                T = cache["ckv"].shape[1]
+                start = cache["len"][0].clamp(0, T - S)
+                rows = start + torch.arange(S, device=x.device)
+                cache["ckv"].index_copy_(1, rows,
+                                         ckv.to(cache["ckv"].dtype))
+                cache["kr"].index_copy_(1, rows, kr.to(cache["kr"].dtype))
             cache["len"] += S
             ckv, kr, kv_len = cache["ckv"], cache["kr"], cache["len"]
         T = ckv.shape[1]
@@ -367,8 +456,9 @@ class MoE(nn.Module):
     def forward(self, x: torch.Tensor, capacity_factor: float = 1.25
                 ) -> torch.Tensor:
         """Top-k routing with per-row expert capacity (one-hot dispatch
-        einsums).  The reference's sharding constraints on the dispatch
-        tensors are no-ops on one card and are left out."""
+        einsums).  The expert axis of the dispatch tensors is pinned to the
+        tensor-parallel axis (``logical_constraint``: a no-op on plain
+        tensors and without an installed axis map)."""
         B, S, d = x.shape
         e, k = self.cfg.n_experts, self.cfg.top_k
         cap = max(int(S * k / e * capacity_factor), 4)
@@ -392,11 +482,15 @@ class MoE(nn.Module):
         dispatch = (onehot * within).to(disp_dtype)[..., None] \
             * slot.to(disp_dtype)                                 # (B,S,k,E,C)
         dispatch = dispatch.sum(2)                                # (B,S,E,C)
+        dispatch = _shard.logical_constraint(dispatch, "b", None, "m", None)
         combine = (dispatch * gates.sum(-1)[..., None, None]).to(x.dtype)
         xe = einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
+        xe = _shard.logical_constraint(xe, "b", "m", None, None)
         hid = silu(einsum("becd,edf->becf", xe, self.wg)) \
             * einsum("becd,edf->becf", xe, self.wi)
+        hid = _shard.logical_constraint(hid, "b", "m", None, None)
         ye = einsum("becf,efd->becd", hid, self.wo)
+        ye = _shard.logical_constraint(ye, "b", "m", None, None)
         y = einsum("bsec,becd->bsd", combine, ye)
         if self.shared is not None:
             y = y + self.shared(x)
@@ -434,13 +528,13 @@ def ssd_scan_ref(x, dt, a_log, b, c, chunk: int = 128):
                         device=x.device).tril()
     decay = torch.exp(rel.masked_fill(~causal[None, None, :, :, None],
                                       -1e30))
-    cb = torch.einsum("bkin,bkjn->bkij", cr, br)                # (B,nc,Li,Lj)
+    cb = einsum("bkin,bkjn->bkij", cr, br)                      # (B,nc,Li,Lj)
     wgt = cb[..., None] * decay * dtr[:, :, None, :, :]     # (B,nc,Li,Lj,H)
-    y_intra = torch.einsum("bkijh,bkjhp->bkihp", wgt, xr)
+    y_intra = einsum("bkijh,bkjhp->bkihp", wgt, xr)
     # chunk-final states
     tail = seg[:, :, -1:, :] - seg                              # (B,nc,L,H)
-    state_c = torch.einsum("bkjh,bkjn,bkjhp->bkhpn",
-                           torch.exp(tail) * dtr, br, xr)       # (B,nc,H,P,N)
+    state_c = einsum("bkjh,bkjn,bkjhp->bkhpn",
+                     torch.exp(tail) * dtr, br, xr)             # (B,nc,H,P,N)
     # inter-chunk recurrence over nc
     chunk_decay = torch.exp(seg[:, :, -1, :])                   # (B,nc,H)
     s = torch.zeros((B, H, Pd, N), dtype=f32, device=x.device)
@@ -449,8 +543,8 @@ def ssd_scan_ref(x, dt, a_log, b, c, chunk: int = 128):
         states_in.append(s)
         s = s * chunk_decay[:, i, :, None, None] + state_c[:, i]
     states_in = torch.stack(states_in, dim=1)                   # (B,nc,H,P,N)
-    y_inter = torch.einsum("bkin,bkih,bkhpn->bkihp",
-                           cr, torch.exp(seg), states_in)
+    y_inter = einsum("bkin,bkih,bkhpn->bkihp",
+                     cr, torch.exp(seg), states_in)
     y = (y_intra + y_inter).reshape(B, S, H, Pd)
     return y.to(x.dtype)
 
@@ -503,9 +597,9 @@ class Mamba2(nn.Module):
             xh = xv.reshape(B, h, pd).float()
             dec = torch.exp(dt[:, 0] * a)                         # (B,H)
             s = cache["ssm"] * dec[..., None, None] \
-                + torch.einsum("bh,bhp,bn->bhpn", dt[:, 0], xh,
-                               b[:, 0].float())
-            y = torch.einsum("bn,bhpn->bhp", c[:, 0].float(), s)
+                + einsum("bh,bhp,bn->bhpn", dt[:, 0], xh,
+                         b[:, 0].float())
+            y = einsum("bn,bhpn->bhp", c[:, 0].float(), s)
             y = y + self.d_skip[:, None] * xh
             y = y.reshape(B, 1, di).to(x.dtype)
             cache["conv"].copy_(conv_state)

@@ -11,6 +11,7 @@ Caches are one dict per layer (None for a cross-attention layer).
 
 Entry points:
   Model(cfg, device=..., generator=...)        -> the weights (bf16)
+  param_specs(cfg)                             -> {parameter name: spec}
   encode(model, frames)                        -> the encoder's output
   forward(model, tokens, ctx=None)             -> logits (every position)
   loss_fn(model, batch, remat=True)            -> next-token cross-entropy
@@ -20,6 +21,11 @@ Entry points:
 ``ctx`` is the context that cross-attention reads, (B, T, d_model): the
 vision embeddings of a ``frontend == "vision"`` model's ``cross_attn``
 layers, or the encoder's output for an encoder-decoder's decoder.
+
+Sharding: ``param_specs`` gives each parameter the reference's logical
+spec; ``set_activation_spec`` pins the residual stream of a sharded
+(DTensor) model to given placements at every pattern period, as the
+reference's ``_constrain`` does.
 """
 from __future__ import annotations
 
@@ -31,13 +37,44 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.sharding import is_dtensor
 from . import layers as L
 from .config import ModelConfig
 
 __all__ = ["Block", "EncoderBlock", "Model", "encode", "forward", "loss_fn",
-           "init_cache", "decode_step"]
+           "init_cache", "decode_step", "param_specs",
+           "set_activation_spec", "set_scan_unroll"]
 
 LayerCache = Optional[L.Cache]
+
+# Optional DTensor placements pinned onto the residual stream at every
+# pattern period (sequence parallelism in the dry-run): keeps the
+# activations between layers sharded.  Set by the launcher.
+_ACT_SPEC: list = [None]
+
+
+def set_activation_spec(placements) -> None:
+    """Placements (one per mesh dimension) for the residual stream of a
+    DTensor forward, or None for no constraint."""
+    _ACT_SPEC[0] = placements
+
+
+def set_scan_unroll(v: bool, blocks_unroll: int = 1) -> None:
+    """The reference's cost-mode switch.  There it unrolls the scans (the
+    blocks scan by ``blocks_unroll``) so that XLA's cost analysis counts
+    every layer, and routes attention through the loop-free direct path.
+    The port's model is eager and already unrolled, so the one effect
+    that carries over is the attention route: with ``v`` a whole sequence
+    of tensors off the card takes ``_sdpa_direct`` instead of the flash
+    kernel (``L.COST_MODE``); tensors on the card keep the kernel.
+    ``blocks_unroll`` is accepted and has nothing to unroll."""
+    L.COST_MODE[0] = bool(v)
+
+
+def _constrain(x: torch.Tensor) -> torch.Tensor:
+    if _ACT_SPEC[0] is None or not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, _ACT_SPEC[0])
 
 
 class Block(nn.Module):
@@ -69,18 +106,20 @@ class Block(nn.Module):
             self.xattn = L.Attention(cfg, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: LayerCache, ctx: Optional[torch.Tensor] = None):
+                cache: LayerCache, ctx: Optional[torch.Tensor] = None,
+                fresh: bool = False):
         """A ``cross_attn`` mixer attends over ``ctx``; called without one
         it runs, as in the reference, causal self-attention with rope over
         the new tokens only, with no cache (in a decode step each token
-        attends to itself)."""
+        attends to itself).  ``fresh``: the caller knows ``cache`` is
+        empty (a prefill step), so attention need not read its lengths."""
         h = self.norm1(x)
         if self.mixer == "mamba":
             y, cache = self.mamba(h, cache)
         elif self.mixer == "cross_attn":
             y, _ = self.attn(h, positions, None, cross_ctx=ctx)
         else:
-            y, cache = self.attn(h, positions, cache)
+            y, cache = self.attn(h, positions, cache, fresh=fresh)
         x = x + y
         if self.xattn is not None and ctx is not None:
             x = x + self.xattn(self.norm_x(x), positions, None,
@@ -149,6 +188,54 @@ def _layer_kinds(cfg: ModelConfig):
     return cfg.prefix_pattern() + cfg.pattern() * cfg.n_repeats
 
 
+def _spec_layer(cfg: ModelConfig, mixer: str, ffn_kind: str) -> L.Specs:
+    p: L.Specs = {"norm1": L.spec_norm(), "norm2": L.spec_norm()}
+    if mixer == "mamba":
+        p["mamba"] = L.spec_mamba2(cfg)
+    elif cfg.mla and mixer == "attn":
+        p["attn"] = L.spec_mla(cfg)
+    else:
+        p["attn"] = L.spec_attention(cfg)
+    if ffn_kind == "moe":
+        p["ffn"] = L.spec_moe(cfg)
+    elif ffn_kind == "dense":
+        p["ffn"] = L.spec_ffn(cfg)
+    if cfg.encoder_layers and mixer == "attn":
+        p["norm_x"] = L.spec_norm()
+        p["xattn"] = L.spec_attention(cfg)
+    return p
+
+
+def _flat(tree: L.Specs, prefix: str, out: Dict[str, object]) -> None:
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            _flat(v, name, out)
+        else:
+            out[name] = v
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, object]:
+    """The logical ``PartitionSpec`` of every parameter of ``Model(cfg)``,
+    keyed by its ``named_parameters()`` name: the reference's spec of the
+    same leaf (``repro/models/model.py::param_specs``), without the
+    leading ``None`` of its stacked layer axis (the port unrolls the
+    layers)."""
+    out: Dict[str, object] = {"embed": L.P("m", "d")}
+    _flat({"final_norm": L.spec_norm()}, "", out)
+    if not cfg.tie_embeddings:
+        _flat({"lm_head": L.spec_dense("d", "m")}, "", out)
+    for i, (mk, fk) in enumerate(_layer_kinds(cfg)):
+        _flat(_spec_layer(cfg, mk, fk), f"layers.{i}", out)
+    for i in range(cfg.encoder_layers):
+        _flat({"norm1": L.spec_norm(), "attn": L.spec_attention(cfg),
+               "norm2": L.spec_norm(), "ffn": L.spec_ffn(cfg)},
+              f"encoder.{i}", out)
+    if cfg.encoder_layers:
+        _flat({"enc_final_norm": L.spec_norm()}, "", out)
+    return out
+
+
 def _remat_layer(layer: Block, x: torch.Tensor, positions: torch.Tensor,
                  ctx: Optional[torch.Tensor]) -> torch.Tensor:
     return layer(x, positions, None, ctx)[0]
@@ -156,20 +243,28 @@ def _remat_layer(layer: Block, x: torch.Tensor, positions: torch.Tensor,
 
 def _run_blocks(model: Model, x: torch.Tensor, positions: torch.Tensor,
                 ctx: Optional[torch.Tensor],
-                caches: Optional[List[LayerCache]], remat: bool = False):
+                caches: Optional[List[LayerCache]], remat: bool = False,
+                fresh: bool = False):
     """``remat`` (training, no caches) rematerialises each block in the
     backward, as ``jax.checkpoint`` around each layer does in the
-    reference: the block's forward, its kernels included, runs again."""
-    if remat and caches is None:
-        for layer in model.layers:
-            x = checkpoint(_remat_layer, layer, x, positions, ctx,
-                           use_reentrant=False)
-        return x, None
+    reference: the block's forward, its kernels included, runs again.
+    ``fresh``: ``caches`` are empty (``Block.forward``).  The residual
+    stream is constrained (``set_activation_spec``) at the start of every
+    pattern period and after the last, where the reference's scan body
+    constrains it."""
+    first, period = model.cfg.first_k_dense, len(model.cfg.pattern())
     new = []
     for i, layer in enumerate(model.layers):
+        if i >= first and (i - first) % period == 0:
+            x = _constrain(x)
+        if remat and caches is None:
+            x = checkpoint(_remat_layer, layer, x, positions, ctx,
+                           use_reentrant=False)
+            continue
         x, c = layer(x, positions, None if caches is None else caches[i],
-                     ctx)
+                     ctx, fresh)
         new.append(c)
+    x = _constrain(x)
     return x, (new if caches is not None else None)
 
 
@@ -246,6 +341,13 @@ def _chunked_ce(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor,
     are (chunk, V) float32.  The logits are the bf16 product widened to
     float32, pad vocab columns at -1e30.  Returns the mean over rows."""
     B, S, D = x.shape
+    return _ce_sum(cfg, x, head, labels) / (B * S)
+
+
+def _ce_sum(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """The summed cross-entropy of x's rows, chunk by chunk."""
+    B, S, D = x.shape
     rows = B * S
     xf = x.reshape(rows, D)
     lf = labels.reshape(rows)
@@ -256,7 +358,7 @@ def _chunked_ce(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor,
     for s in range(0, rows, chunk):
         acc = acc + checkpoint(_ce_block, cfg, xf[s:s + chunk], head,
                                lf[s:s + chunk], use_reentrant=False)
-    return acc / rows
+    return acc
 
 
 def loss_fn(model: Model, batch: Dict[str, torch.Tensor], remat: bool = True

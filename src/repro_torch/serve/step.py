@@ -23,13 +23,25 @@ __all__ = ["make_prefill_step", "make_decode_step", "greedy_sample"]
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
     @torch.inference_mode()
-    def prefill_step(model: Model, tokens: torch.Tensor, ctx=None):
+    def prefill_step(model: Model, tokens: torch.Tensor, ctx=None,
+                     caches=None):
+        """``caches``: empty caches to fill (``init_cache``'s layout, as
+        the dry-run passes them sharded); made here when None.  Caches
+        passed in are held to be empty (every attention cache's ``len``
+        0; a Mamba cache is overwritten whole) by an assert on the device,
+        which reads nothing back to the host."""
         B, S = tokens.shape
-        caches = init_cache(cfg, B, max_len, model.device)
+        if caches is None:
+            caches = init_cache(cfg, B, max_len, model.device)
+        else:
+            for c in caches:
+                if c is not None and "len" in c:
+                    torch._assert_async((c["len"] == 0).all(),
+                                        "prefill_step: caches not empty")
         x = _embed(model, tokens)
         positions = torch.arange(S, device=x.device).expand(B, S)
         x, caches = _run_blocks(model, x, positions, _context(model, ctx),
-                                caches)
+                                caches, fresh=True)
         x = L.norm(model.final_norm.scale, x[:, -1:], cfg.norm)
         logits = L.einsum("bsd,dv->bsv", x, model.head())
         return _mask_pad_logits(cfg, logits), caches

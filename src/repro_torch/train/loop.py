@@ -4,8 +4,9 @@ Composes the deterministic data pipeline, the train step, async
 checkpointing, straggler detection and fault injection.  The recovery
 path is the reference's: catch the failure, restore the last committed
 checkpoint into a fresh state, and replay the stream from that step
-(bit-identical, since the data is counter-mode).  Re-meshing over the
-healthy devices comes with the port's sharding.
+(bit-identical, since the data is counter-mode).  As in the reference,
+the loop restarts on its one device; ``train.fault.ElasticMesh`` rebuilds
+the mesh over the healthy devices and re-shards a live state onto it.
 """
 from __future__ import annotations
 

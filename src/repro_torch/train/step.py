@@ -14,6 +14,7 @@ from typing import Any, Dict
 
 import torch
 
+from ..distributed.sharding import is_dtensor
 from ..models.config import ModelConfig
 from ..models.model import Model, loss_fn
 from ..optim.adamw import AdamWConfig, apply_updates, init_opt_state
@@ -61,7 +62,8 @@ def make_grads_fn(cfg: ModelConfig, microbatches: int = 1,
                 for p in params]
         for i in range(microbatches):
             loss, grads = one(model, names, params,
-                              {k: v[i] for k, v in mbs.items()})
+                              {k: _laid_out_as(v[i], batch[k])
+                               for k, v in mbs.items()})
             loss_sum = loss_sum + loss
             gsum = [a + g for a, g in zip(gsum, grads)]
             del grads
@@ -69,6 +71,15 @@ def make_grads_fn(cfg: ModelConfig, microbatches: int = 1,
         return loss_sum * inv, {n: g * inv for n, g in zip(names, gsum)}
 
     return grads_of
+
+
+def _laid_out_as(part: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """A microbatch of a DTensor batch, sharded as the batch was (its
+    split gathers the batch axis; each slice is then cut again, a local
+    slice, so every device keeps its share of the rows)."""
+    if not is_dtensor(whole):
+        return part
+    return part.redistribute(whole.device_mesh, whole.placements)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,

@@ -244,9 +244,12 @@ def test_config_plus_legacy_kwargs_is_an_error(legacy):
 def test_legacy_kwargs_are_keyword_only_and_shard_still_refused():
     with pytest.raises(TypeError):
         EvalEngine(WLS, DEFAULT_CALIB, None, "cpu", 64)
+    # shard=True is served now: through the deprecated keyword it warns
+    # and builds the sharded config, which on one device keeps the
+    # one-device path
     with pytest.warns(DeprecationWarning):
-        with pytest.raises(NotImplementedError, match="A7"):
-            EvalEngine(WLS, device="cpu", shard=True)
+        eng = EvalEngine(WLS, device="cpu", shard=True)
+    assert eng.config.shard and eng._devices is None
 
 
 # =============================================================================

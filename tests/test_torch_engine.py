@@ -102,10 +102,17 @@ def test_context_key_differs_from_reference():
 
 
 @pytest.mark.parametrize("kw", [dict(backend="batched", shard=True)])
-def test_unported_configurations_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P_engine.EvalEngine(WORKLOADS, config=P_api.EngineConfig(**kw),
-                            device="cpu")
+def test_unported_configurations_raise(kw, genomes):
+    """Every configuration is ported: ``shard=True``, the last one that
+    raised, now builds and, on one device, scores bit for bit as the
+    unsharded engine."""
+    eng = P_engine.EvalEngine(WORKLOADS, config=P_api.EngineConfig(**kw),
+                              device="cpu")
+    one = P_engine.EvalEngine(WORKLOADS, config=P_api.EngineConfig(
+        **dict(kw, shard=False)), device="cpu")
+    got, want = eng.evaluate(genomes), one.evaluate(genomes)
+    for k in ("latency", "energy", "tops_w", "area"):
+        assert np.array_equal(got[k], want[k]), k
 
 
 _CELLS = [(b, m, f) for b in P_api.BACKENDS

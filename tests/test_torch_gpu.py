@@ -7,7 +7,9 @@ engine and the plan-table executor on ``cuda`` against the CPU, the
 python-mapper engine bit for bit the batched backend on ``cuda``, the
 device search's memo, genetics step, device configs and Eq. 8 on
 ``cuda`` bit for bit the CPU, and the evaluation service and the worker
-cluster over ``cuda`` engines bit for bit a local ``cuda`` engine.  Every test
+cluster over ``cuda`` engines bit for bit a local ``cuda`` engine, and
+the sharding layer on one card (a (1, 1) NCCL mesh with the ring matmul,
+the sharded engine bit for bit the unsharded one).  Every test
 here needs an NVIDIA GPU (and nvcc); elsewhere each one skips with its
 reason.  Torch only, no JAX, so the
 file runs on the GPU machine:
@@ -837,3 +839,41 @@ def test_cuda_served_search_runs_its_genetics_on_cuda(cuda, monkeypatch):
     res = events[-1]["result"]
     assert res["best_fitness"] == local.best_fitness
     assert res["best_genome"] == local.best_genome.tolist()
+
+
+@pytest.mark.gpu
+def test_cuda_one_rank_mesh_and_ring_matmul(cuda):
+    """``make_mesh_for_devices(1)`` makes a (1, 1) mesh over an NCCL group
+    of one rank; the ring matmul on it (no send) is ``x @ w``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.overlap import ring_allgather_matmul
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    assert not dist.is_initialized()
+    try:
+        mesh = make_mesh_for_devices(1)
+        assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+        assert dist.get_backend() == "nccl"
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn(512, 256, generator=gen).to(cuda)
+        w = torch.randn(256, 384, generator=gen).to(cuda)
+        y = ring_allgather_matmul(x, w, mesh.get_group("model"))
+        torch.testing.assert_close(y, x @ w, rtol=1e-6, atol=0)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["batched", "exact"])
+def test_cuda_sharded_engine_equals_the_unsharded_one(cuda, backend):
+    """One card: ``shard=True`` keeps the one-device path, bit for bit."""
+    from repro_torch.launch.mesh import candidate_sharding, default_islands
+    g = random_genomes(np.random.default_rng(26), 16)
+    assert candidate_sharding() is None and default_islands(16) == 1
+    a = EvalEngine(["kan"], config=EngineConfig(backend=backend, shard=True),
+                   device=cuda).evaluate(g)
+    b = EvalEngine(["kan"], config=EngineConfig(backend=backend),
+                   device=cuda).evaluate(g)
+    for k in ("latency", "energy", "tops_w", "area"):
+        assert np.array_equal(a[k], b[k]), k

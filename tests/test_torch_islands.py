@@ -66,12 +66,17 @@ def test_island_runs_replay_bit_for_bit(sweep):
     assert np.isfinite(a.result.best_fitness)
 
 
-def test_ring_migration():
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+def test_ring_migration(blocks):
+    """The four islands held as ``blocks`` device blocks (one block: the
+    one-card layout) migrate around the same ring."""
     pop = torch.arange(4 * 6, dtype=torch.int32).reshape(4, 6)
     pop = pop[:, :, None].expand(4, 6, 3).reshape(24, 3)
     fit = torch.tensor([5., 1., 3., 0., 4., 2.] * 4, dtype=torch.float64)
     fit[6:12] += 10.0                            # island 1 is the best
-    new_pop, new_fit = _migrate(pop, fit, 4, 2)
+    new_pops, new_fits = _migrate(list(pop.chunk(blocks)),
+                                  list(fit.chunk(blocks)), 4 // blocks, 2)
+    new_pop, new_fit = torch.cat(new_pops), torch.cat(new_fits)
     P = new_pop.reshape(4, 6, 3)[:, :, 0]
     F = new_fit.reshape(4, 6)
     for i in range(4):

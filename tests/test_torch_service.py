@@ -348,8 +348,12 @@ def test_hillclimb_cli_dse_mode_and_the_unported_cell_mode(tmp_path,
                     str(tmp_path)])
     assert (tmp_path / "dse_hillclimb_t.json").exists()
     assert "mean_energy_pj" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A13e"):
-        hillclimb.main(["--arch", "mamba2-780m", "--shape", "train_4k"])
+    # the cell mode is ported: one full-size cell on the fake mesh (the
+    # 500k-token decode of mamba2-780m traces in a few seconds)
+    hillclimb.main(["--arch", "mamba2-780m", "--shape", "long_500k",
+                    "--tag", "c", "--out", str(tmp_path)])
+    assert (tmp_path / "mamba2-780m_long_500k_c.json").exists()
+    assert '"dominant"' in capsys.readouterr().out
 
 
 # =============================================================================

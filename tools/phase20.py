@@ -9,8 +9,9 @@ Run from the root of a checkout:
 Phase 20 reads the rows of phases 4, 6 and 7 and the rates of phases 4
 and 17.  This script computes those rows first, phase 4's and 6's with
 the exact engine (bit for bit the batched one, phase 17), on the first
-1,024 and 256 genomes only; the rate it passes as phase 4's is that of
-this exact run, and phase 17's rates are not measured (printed as nan).
+``SCAN_POPULATION`` and 256 genomes only; the rate it passes as phase
+4's is that of this exact run, and phase 17's rates are not measured
+(printed as nan).
 Then it calls ``chip_smoke._scan_link_phase``; ``--out`` writes the
 phase's record as JSON.  ``--cpu`` rehearses the same on the CPU
 at 8 genomes on three workloads (``torch.cuda.synchronize``, the device
